@@ -1,0 +1,220 @@
+"""SIGGRAPH user-guided colorization U-Net as an ``nn.Module`` (NCHW).
+
+Counterpart of ``ideepcolor_tpu/models/siggraph.py`` (``apply`` with
+``dist=False``), keyed like the reference's ``SIGGRAPHGenerator`` torch
+state dict, so the JAX package's checkpoints load with
+``load_state_dict(strict=True)`` after a pure relayout. Details carried over
+exactly:
+
+* input ``concat(L/100, ab/110, mask - maskcent)``, output ``tanh * 110``;
+* stride-2 steps are slices ``x[:, :, ::2, ::2]``, not strided convs;
+* model5 and model6 are dilated by 2;
+* model8 and model9 start with a ReLU after the skip add; model10 is
+  ReLU -> conv -> LeakyReLU(0.2);
+* inference BatchNorm with eps 1e-5;
+* channel counts come from the weights, so width-scaled students load too;
+* ``model_class`` (the 529-bin distribution head's conv) is registered so
+  strict loading accepts the full checkpoint; the dist head itself is not
+  ported yet, and ``forward`` does not run it.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from . import layers as L
+
+# (block, conv indices within the torch Sequential, bn index or None), the
+# Sequential layouts of the reference generator.
+_BLOCKS: list[tuple[str, list[int], int | None]] = [
+    ("model1", [0, 2], 4),
+    ("model2", [0, 2], 4),
+    ("model3", [0, 2, 4], 6),
+    ("model4", [0, 2, 4], 6),
+    ("model5", [0, 2, 4], 6),
+    ("model6", [0, 2, 4], 6),
+    ("model7", [0, 2, 4], 6),
+    ("model8up", [0], None),
+    ("model3short8", [0], None),
+    ("model8", [1, 3], 5),
+    ("model9up", [0], None),
+    ("model2short9", [0], None),
+    ("model9", [1], 3),
+    ("model10up", [0], None),
+    ("model1short10", [0], None),
+    ("model10", [1], None),
+    ("model_class", [0], None),
+    ("model_out", [0], None),
+]
+_DECONV_BLOCKS = {"model8up", "model9up", "model10up"}
+
+FULL_CHANNELS = (64, 128, 256, 512)
+
+
+def scaled_channels(width: float) -> tuple[int, int, int, int]:
+    """Channel tiers of a width-multiplied student, rounded up to multiples
+    of 8, as the JAX package builds them."""
+    r8 = lambda c: max(8, int(-(-c * width // 8)) * 8)  # noqa: E731
+    return tuple(r8(c) for c in FULL_CHANNELS)
+
+
+def _conv(cin: int, cout: int, k: int = 3, dilation: int = 1) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
+                     dilation=dilation)
+
+
+def _deconv(cin: int, cout: int) -> nn.ConvTranspose2d:
+    return nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1)
+
+
+def _trunk(cin: int, cout: int, n: int, dilation: int = 1) -> nn.Sequential:
+    """[conv ReLU] * n, then BatchNorm."""
+    layers: list[nn.Module] = []
+    for i in range(n):
+        layers += [_conv(cin if i == 0 else cout, cout, 3, dilation),
+                   nn.ReLU()]
+    return nn.Sequential(*layers, nn.BatchNorm2d(cout))
+
+
+class SIGGRAPHGenerator(nn.Module):
+    """The U-Net, regression head only. ``channels`` are the four tiers
+    (c1, c2, c3, c4); :meth:`from_state_dict` reads them off the weights."""
+
+    def __init__(self, channels: tuple[int, int, int, int] = FULL_CHANNELS):
+        super().__init__()
+        c1, c2, c3, c4 = channels
+        self.model1 = _trunk(4, c1, 2)
+        self.model2 = _trunk(c1, c2, 2)
+        self.model3 = _trunk(c2, c3, 3)
+        self.model4 = _trunk(c3, c4, 3)
+        self.model5 = _trunk(c4, c4, 3, dilation=2)
+        self.model6 = _trunk(c4, c4, 3, dilation=2)
+        self.model7 = _trunk(c4, c4, 3)
+        self.model8up = nn.Sequential(_deconv(c4, c3))
+        self.model3short8 = nn.Sequential(_conv(c3, c3))
+        self.model8 = nn.Sequential(nn.ReLU(), _conv(c3, c3), nn.ReLU(),
+                                    _conv(c3, c3), nn.ReLU(),
+                                    nn.BatchNorm2d(c3))
+        self.model9up = nn.Sequential(_deconv(c3, c2))
+        self.model2short9 = nn.Sequential(_conv(c2, c2))
+        self.model9 = nn.Sequential(nn.ReLU(), _conv(c2, c2), nn.ReLU(),
+                                    nn.BatchNorm2d(c2))
+        self.model10up = nn.Sequential(_deconv(c2, c2))
+        self.model1short10 = nn.Sequential(_conv(c1, c2))
+        self.model10 = nn.Sequential(nn.ReLU(), _conv(c2, c2),
+                                     nn.LeakyReLU(0.2))
+        self.model_class = nn.Sequential(_conv(c3, 529, 1))
+        self.model_out = nn.Sequential(_conv(c2, 2, 1))
+
+    @classmethod
+    def from_state_dict(cls, sd: Mapping[str, torch.Tensor]
+                        ) -> "SIGGRAPHGenerator":
+        """Build at the width the (torch-layout) weights carry and load them
+        strictly. The module is in eval mode (inference BatchNorm)."""
+        chans = tuple(int(sd[f"model{i}.0.weight"].shape[0])
+                      for i in (1, 2, 3, 4))
+        net = cls(chans)
+        net.load_state_dict(sd, strict=True)
+        return net.eval()
+
+    def forward(self, input_A: torch.Tensor, input_B: torch.Tensor,
+                mask_B: torch.Tensor, maskcent: float = 0.0) -> torch.Tensor:
+        """input_A (N,1,H,W) L - 50; input_B (N,2,H,W) hint ab; mask_B
+        (N,1,H,W) hint mask -> (N,2,H,W) ab in [-110, 110]."""
+        x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
+                      dim=1)
+        conv1_2 = self.model1(x)
+        conv2_2 = self.model2(conv1_2[:, :, ::2, ::2])
+        conv3_3 = self.model3(conv2_2[:, :, ::2, ::2])
+        conv4_3 = self.model4(conv3_3[:, :, ::2, ::2])
+        conv7_3 = self.model7(self.model6(self.model5(conv4_3)))
+        conv8_3 = self.model8(self.model8up(conv7_3)
+                              + self.model3short8(conv3_3))
+        conv9_3 = self.model9(self.model9up(conv8_3)
+                              + self.model2short9(conv2_2))
+        conv10_2 = self.model10(self.model10up(conv9_3)
+                                + self.model1short10(conv1_2))
+        return torch.tanh(self.model_out(conv10_2)) * 110.0
+
+
+def _is_hwio(arrays: Mapping[str, np.ndarray]) -> bool:
+    """The JAX package's layout puts the 4 input channels of the first conv
+    in axis 2 (HWIO); torch's puts them in axis 1 (OIHW). Any width."""
+    return np.asarray(arrays["model1.0.weight"]).shape[2] == 4
+
+
+def state_dict_from_params(params: Mapping[str, np.ndarray]
+                           ) -> dict[str, torch.Tensor]:
+    """Carry weights across: the JAX package's SIGGRAPH params (HWIO convs,
+    flipped-HWIO deconvs; any width; f16 or f32; numpy or anything
+    ``np.asarray`` takes) or an already torch-layout state dict -> this
+    module's f32 state dict, ``num_batches_tracked`` included so
+    ``load_state_dict(strict=True)`` accepts it."""
+    hwio = _is_hwio(params)
+    f32 = lambda v: torch.from_numpy(  # noqa: E731
+        np.array(v, dtype=np.float32, order="C"))
+    sd: dict[str, torch.Tensor] = {}
+    for block, conv_idx, bn_idx in _BLOCKS:
+        for j in conv_idx:
+            w = np.asarray(params[f"{block}.{j}.weight"])
+            if hwio:
+                w = (L.hwio_to_torch_convT(w) if block in _DECONV_BLOCKS
+                     else L.hwio_to_torch_conv(w))
+            sd[f"{block}.{j}.weight"] = f32(w)
+            sd[f"{block}.{j}.bias"] = f32(params[f"{block}.{j}.bias"])
+        if bn_idx is not None:
+            for suffix in ("weight", "bias", "running_mean", "running_var"):
+                key = f"{block}.{bn_idx}.{suffix}"
+                sd[key] = f32(params[key])
+            sd[f"{block}.{bn_idx}.num_batches_tracked"] = torch.zeros(
+                (), dtype=torch.int64)
+    return sd
+
+
+def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
+    """Load a SIGGRAPH checkpoint -- ``.npz`` in either layout (f16 storage
+    is cast to f32), or a torch ``.pth``/``.pt`` state dict -- as this
+    module's state dict."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            arrays = {k: z[k] for k in z.files}
+    elif path.endswith((".pth", ".pt")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        arrays = {k: v.numpy() for k, v in sd.items()
+                  if "num_batches_tracked" not in k}
+    else:
+        raise ValueError(f"unsupported checkpoint format: {path}")
+    if "model1.0.weight" not in arrays:
+        raise ValueError(f"{path} is not a SIGGRAPH-family checkpoint (no "
+                         "'model1.0.weight')")
+    return state_dict_from_params(arrays)
+
+
+def init_state_dict(width: float = 1.0, seed: int = 0
+                    ) -> dict[str, torch.Tensor]:
+    """He-normal random weights at ``width`` (zero biases, identity
+    BatchNorm), from a seeded ``torch.Generator``. The numbers differ from
+    the JAX package's ``init_params``; the distribution is the same."""
+    chans = FULL_CHANNELS if width == 1.0 else scaled_channels(width)
+    with torch.device("meta"):           # shapes only, no default init
+        shapes = SIGGRAPHGenerator(chans).state_dict()
+    gen = torch.Generator().manual_seed(seed)
+    sd: dict[str, torch.Tensor] = {}
+    for name, t in shapes.items():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = torch.zeros((), dtype=torch.int64)
+        elif t.dim() == 4:
+            # fan_in = cin * k * k; ConvTranspose2d keeps cin in axis 0
+            block = name.split(".")[0]
+            cin = t.shape[0] if block in _DECONV_BLOCKS else t.shape[1]
+            std = float(np.sqrt(2.0 / (cin * t.shape[2] * t.shape[3])))
+            sd[name] = torch.randn(t.shape, generator=gen) * std
+        elif name.endswith(("running_var", "weight")):   # BatchNorm
+            sd[name] = torch.ones(t.shape)
+        else:                                 # biases, running means
+            sd[name] = torch.zeros(t.shape)
+    return sd
