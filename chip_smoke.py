@@ -9,35 +9,44 @@ or more each; any failure exits non-zero:
 
 1. environment: Python, torch and CUDA versions, and the card's name and
    power limit as nvidia-smi reports them;
-2. build: both kernels from ideepcolor_tpu_torch/csrc, one nvcc each, in
+2. build: both kernel sources of ideepcolor_tpu_torch/csrc (K2's library
+   exports the compose and the fused click entry), one nvcc each, in
    parallel, timed;
 3. K1 (hint rasterizer) against its plain version on the card, bit-exact,
-   at S=256 with 200 live hints (overlapping, across the edges), then timed
-   at the main path's table;
-4. K2 (Lab -> uint8 compose) against its plain version on the card, <= 1
-   LSB on < 1e-3 of the pixels, at the click frame, the main path's
-   full-res frame and 1536x2048, in each plane layout the main path hands
-   it (planar ab, stride-2 ab views, stride-0 zero planes), timed;
+   at 0, 10, 200 and 256 live hints (overlapping, across the edges) at
+   S=256 and at S=250 (not a multiple of 4); timed at the main path's
+   table (10 hints) and at 200 hints, with the box tests its tile culling
+   leaves beside those of a full scan per pixel;
+4. K2 against its plain version on the card, <= 1 LSB on < 1e-3 of the
+   values, at the click frame, the main path's full-res frame (750 wide,
+   not a multiple of 4) and 1536x2048, in five plane layouts: contiguous
+   planes, stride-3 L with planar ab (L as a channel of a Lab image),
+   stride-2 ab views (the full-res getter), stride-0 zero ab (the
+   mask and gray getters) and a plane 4 bytes off 16-byte alignment; each
+   timed, with the bytes the layout really moves beside the 15 B/px bound.
+   The fused entry: its frame byte-identical to the compose's, its ab
+   within 1e-3 of requantized_ab of that frame, timed;
 5. the main path: ColorizeImageTorch(Xd=256) with the bundled full-width
    teacher weights -- load a seeded 1000x750 image, a table click with no
    hint, ten clicks that add hints, a dense click, the full-res, mask and
-   sup full-res getters -- with both kernels' launch counts read around
-   it; the same session on the CPU (plain kernel versions, CPU convs) must
-   give the same frames within the bound below (1 LSB on < 1e-3 of the
-   pixels of each frame); a profile of five clicks says where the device
-   time goes;
-6. one JSON line listing each kernel with its launches on the main path,
-   its error against the plain version, its time, the plain version's,
-   its bound and what sets it;
+   sup full-res getters -- with every kernel entry's launch count read
+   around it; the same session on the CPU (plain kernel versions, CPU
+   convs) must give the same frames within the bound below (1 LSB on <
+   1e-3 of the pixels of each frame, output_ab within 1e-3 where the
+   frames agree); click latency, and a profile of five clicks that says
+   where the device time goes and how many device kernels a click runs;
+6. one JSON line listing each kernel entry with its launches on the main
+   path, its error against the plain version, its time, the plain
+   version's, its bound and what sets it, and the shape and plane layout
+   those numbers were measured at;
 7. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
 calls, divided by 20. ``bound_ms`` is the larger of the bytes the function
-must move over 3.35 TB/s and its operations over 67 TFLOP/s (the H100 SXM
-data sheet's HBM rate and f32 rate outside the tensor cores; the int32
-compares of K1 are counted at the f32 rate). No single PyTorch call
-computes either function, so ``library_ms`` is null.
+must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100
+SXM data sheet's HBM rate and f32 rate outside the tensor cores). No single
+PyTorch call computes either function, so ``library_ms`` is null.
 """
 
 from __future__ import annotations
@@ -53,8 +62,12 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 K2_OPS_PER_PIXEL = 60        # f32 operations of the chain, pow counted once
+K2_AB_OPS_PER_PIXEL = 100    # the fused entry: the chain, then RGB -> Lab ab
+K2_BAR = (1, 1e-3)           # K2 vs plain: max LSB, share of values
+AB_BAR = 1e-3                # fused ab vs requantized_ab of the same frame
 S = 256
 FULLRES_HW = (1000, 750)
+K2_SIZES = ((S, S), FULLRES_HW, (1536, 2048))
 FRAME_BOUND_LSB = 1          # card vs CPU session, per channel
 FRAME_BOUND_SHARE = 1e-3     # of the pixels of any one frame
 WEIGHTS = "weights/teacher.npz"
@@ -111,7 +124,7 @@ def eager_ms(fn, reps: int = 20, samples: int = 50) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -134,28 +147,78 @@ def session_hints(n: int, seed: int = 7) -> list[dict]:
              "radius": int(rng.integers(1, 5))} for _ in range(n)]
 
 
-def k1_table(n_live: int, seed: int = 1):
+def k1_table(n_live: int, size: int = S, seed: int = 1):
     """A 256-slot table: n_live overlapping boxes, many across the edges."""
     rng = np.random.default_rng(seed)
     boxes = np.zeros((256, 4), np.int32)
     values = np.zeros((256, 2), np.float32)
     for i in range(256):
-        y, x = rng.integers(-10, S + 10, 2)
+        y, x = rng.integers(-10, size + 10, 2)
         r = rng.integers(0, 13)
         boxes[i] = [y - r, x - r, y + r, x + r]
         values[i] = rng.uniform(-100, 100, 2)
     return boxes, values, n_live
 
 
-def k1_scanned(boxes, count: int) -> int:
-    """Slots K1 scans for this table: from count-1 down to the first box
-    that covers the pixel, or all count slots where none does."""
-    ys, xs = np.mgrid[0:S, 0:S]
-    last = np.full((S, S), -1)
+def k1_box_tests(boxes, count: int, size: int = S) -> tuple[int, int, int]:
+    """Box tests of this table: (K1's cull, K1's scan, a full scan per
+    pixel). K1 tests every live slot against each 8x64 tile, then each
+    thread scans its tile's list from the end until its four pixels are
+    covered (all of it where one is not). A full scan per pixel goes from
+    slot count-1 down to the first cover (all count slots without one)."""
+    if count == 0:
+        return 0, 0, 0
+    b = boxes[:count]
+    ys, xs = np.mgrid[0:size, 0:size]
+    last = np.full((size, size), -1)
     for k in range(count):
-        y1, x1, y2, x2 = boxes[k]
-        last[(ys >= y1) & (ys <= y2) & (xs >= x1) & (xs <= x2)] = k
-    return int(np.where(last >= 0, count - last, count).sum())
+        last[(ys >= b[k, 0]) & (ys <= b[k, 2]) & (xs >= b[k, 1])
+             & (xs <= b[k, 3])] = k
+    full = int(np.where(last >= 0, count - last, count).sum())
+    cull = scan = 0
+    for ty in range(0, size, 8):
+        for tx in range(0, size, 64):
+            y1, x1 = min(ty + 8, size) - 1, min(tx + 64, size) - 1
+            cull += count
+            hit = ((b[:, 0] <= y1) & (b[:, 2] >= ty) & (b[:, 1] <= x1)
+                   & (b[:, 3] >= tx))
+            rank = np.cumsum(hit) - 1         # place in the tile's list
+            n = int(hit.sum())
+            tile = last[ty:y1 + 1, tx:x1 + 1]
+            j = np.where(tile >= 0, rank[np.maximum(tile, 0)], -1)
+            pad = (-j.shape[1]) % 4
+            j = np.pad(j, ((0, 0), (0, pad)), constant_values=n)
+            groups = j.reshape(j.shape[0], -1, 4)
+            first = np.where((groups < 0).any(-1), 0, groups.min(-1))
+            scan += int((n - first).sum())
+    return cull, scan, full
+
+
+def needed(planes, out_bytes: int) -> int:
+    """Bytes the function must move: each distinct input element once (a
+    stride-0 plane is one element), plus the output."""
+    seen = {(t.data_ptr(), t.stride()): 1 if t.stride() == (0, 0)
+            else t.numel() for t in planes}
+    return 4 * sum(seen.values()) + out_bytes
+
+
+def traffic(planes, out_bytes: int) -> int:
+    """Bytes a call really moves: each storage the planes read spans, once,
+    plus the output."""
+    spans = {}
+    for t in planes:
+        lo = t.data_ptr()
+        hi = lo + 4 * (1 + sum((n - 1) * st for n, st in
+                               zip(t.shape, t.stride())))
+        key = t.untyped_storage().data_ptr()
+        old = spans.get(key, (lo, hi))
+        spans[key] = (min(lo, old[0]), max(hi, old[1]))
+    return sum(hi - lo for lo, hi in spans.values()) + out_bytes
+
+
+def lsb(got, want) -> tuple[int, float]:
+    d = (got.int() - want.int()).abs()
+    return int(d.max()), float((d != 0).float().mean())
 
 
 def main() -> int:
@@ -165,11 +228,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from ideepcolor_tpu_torch.api import ColorizeImageTorch
+    from ideepcolor_tpu_torch.ops import colorspace as cs
     from ideepcolor_tpu_torch.ops import hints
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     dev = torch.device("cuda")
+    entries = (k1.KERNEL, k2.KERNEL, k2.KERNEL_AB)
 
     # 1. environment
     smi = subprocess.run(
@@ -182,8 +247,9 @@ def main() -> int:
     print(smi)
 
     # 2. build
-    secs = build.build_all([k1.KERNEL, k2.KERNEL])
-    print(f"build: {secs:.1f} s for {k1.KERNEL.source}, {k2.KERNEL.source}")
+    secs = build.build_all(entries)
+    print(f"build: {secs:.1f} s for {k1.KERNEL.source} and "
+          f"{k2.KERNEL.source}")
     for k in (k1.KERNEL, k2.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -191,81 +257,134 @@ def main() -> int:
 
     report = {}
 
-    # 3. K1: bit-exact at 200 live hints, then timed at the main path's table
-    def k1_pair(table):
+    # 3. K1: bit-exact at 0/10/200/256 live hints at S=256 and S=250, then
+    # timed at the main path's table and at 200 hints
+    def k1_pair(table, size=S):
         b = torch.from_numpy(table[0]).to(dev)
         v = torch.from_numpy(table[1]).to(dev)
-        kern = lambda: k1.rasterize_hints_planar(b, v, table[2], S)  # noqa
+        kern = lambda: k1.rasterize_hints_planar(b, v, table[2], size)  # noqa
         def plain():
-            ab, mask = hints.rasterize_hints(b, v, table[2], S)
+            ab, mask = hints.rasterize_hints(b, v, table[2], size)
             return torch.cat([ab, mask], -1).permute(2, 0, 1)
         return kern, plain
 
-    kern, plain = k1_pair(k1_table(200))
-    got, want = kern(), plain()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    if not torch.equal(got, want):
-        die(f"K1 differs from its plain version (max |d| {err})")
-    print(f"K1 check: S={S}, 200 live hints: bit-exact with the plain "
-          f"version")
+    k1_err = 0.0
+    for size in (S, 250):
+        for n in (0, 10, 200, 256):
+            kern, plain = k1_pair(k1_table(n, size), size)
+            got, want = kern(), plain()
+            err = float((got - want).abs().max())
+            k1_err = max(k1_err, err)
+            if not torch.equal(got, want):
+                die(f"K1 differs from its plain version at S={size}, {n} "
+                    f"live hints (max |d| {err})")
+    print(f"K1 check: S={S} and S=250, 0, 10, 200 and 256 live hints: "
+          f"bit-exact with the plain version")
     for label, table in (("200 hints", k1_table(200)),
                          ("main path, 10 hints",
                           hints.points_json_to_table(session_hints(10), S))):
         kern, plain = k1_pair(table)
         n = table[2]
-        nbytes = n * 24 + 4 + 3 * S * S * 4
-        b_ms, b_by = bound(nbytes, 4 * k1_scanned(table[0], n))
+        b_ms, b_by = bound(3 * S * S * 4 + 24 * n + 4)
+        cull, scan, full = k1_box_tests(table[0], n)
         ms, p_ms, e_ms = device_ms(kern), device_ms(plain), eager_ms(kern)
         print(f"K1 time ({label}): kernel {ms:.5f} ms, plain {p_ms:.5f} ms,"
               f" eager call {e_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}), "
-              f"share of bound {b_ms / ms:.3f}")
-    report["rasterize_hints"] = dict(max_abs_err=err, ms=ms, plain_ms=p_ms,
-                                     bound_ms=b_ms, bound_by=b_by)
+              f"share of bound {b_ms / ms:.3f}; box tests: cull {cull} + "
+              f"scan {scan} (a full scan per pixel: {full})")
+    report[k1.KERNEL.name] = dict(
+        max_abs_err=k1_err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, shape=[S, S],
+        layout=f"{n} live hints of 256 slots, planar (3,{S},{S}) f32 out")
 
-    # 4. K2: <= 1 LSB on < 1e-3 of the pixels, at three frame sizes
+    # 4. K2: <= 1 LSB on < 1e-3 of the values, three sizes, five layouts
     rng = np.random.default_rng(2)
-    for H, W in ((S, S), FULLRES_HW, (1536, 2048)):
+    worst = (0, 0.0)
+    for H, W in K2_SIZES:
         lab = torch.from_numpy(np.concatenate(
             [rng.uniform(0, 100, (H, W, 1)),
              rng.uniform(-110, 110, (H, W, 2))],
             -1).astype(np.float32)).to(dev)
-        ab = lab[..., 1:].permute(2, 0, 1).contiguous()  # planar, as the U-Net
-        l = lab[..., 0]                                  # strided, as Lab
-        kern = lambda: k2.lab_to_rgb_u8_hwc(l, ab[0], ab[1])  # noqa: E731
-        plain = lambda: k2.lab_to_rgb_u8_plain(l, ab[0], ab[1])  # noqa
-        zero = torch.zeros((), device=dev).expand(H, W)  # stride 0
+        l = lab[..., 0].contiguous()
+        ab = lab[..., 1:].permute(2, 0, 1).contiguous()   # planar: U-Net
+        ab_hwc = lab[..., 1:].contiguous()                # as a zoom output
+        zero = torch.zeros((), device=dev).expand(H, W)   # stride 0
+        off = torch.empty(H * W + 4, device=dev)[1:H * W + 1].view(H, W)
+        off.copy_(ab[0])                                  # 4 B off 16 B
         layouts = {
-            # planar ab (the U-Net's output), L at stride 3 (a Lab channel)
-            "planar ab": (kern, plain),
-            # stride-2 ab views of an (H, W, 2) zoom output (full-res, sup)
-            "interleaved ab": (
-                lambda: k2.compose_frame_u8(lab[..., :1], lab[..., 1:]),
-                lambda: k2.lab_to_rgb_u8_plain(l, lab[..., 1], lab[..., 2])),
-            # stride-0 zero ab planes (mask and gray getters)
-            "zero ab": (lambda: k2.lab_to_rgb_u8_hwc(l, zero, zero),
-                        lambda: k2.lab_to_rgb_u8_plain(l, zero, zero)),
+            "contiguous": (l, ab[0], ab[1]),
+            "stride-3 L, planar ab": (lab[..., 0], ab[0], ab[1]),
+            "stride-2 ab": (l, ab_hwc[..., 0], ab_hwc[..., 1]),
+            "stride-0 ab": (l, zero, zero),
+            "misaligned a": (l, off, ab[1]),
         }
-        worst, share = 0, 0.0
-        for layout, (run_k, run_p) in layouts.items():
-            d = (run_k().int() - run_p().int()).abs()
-            torch.cuda.synchronize()
-            w, s = int(d.max()), float((d != 0).float().mean())
-            if w > 1 or s >= 1e-3:
+        kernel_ms = {}
+        for layout, planes in layouts.items():
+            w, s = lsb(k2.lab_to_rgb_u8_hwc(*planes),
+                       k2.lab_to_rgb_u8_plain(*planes))
+            if w > K2_BAR[0] or s >= K2_BAR[1]:
                 die(f"K2 at {H}x{W}, {layout}: {w} LSB on {s:.2e} of the "
                     f"values")
-            worst, share = max(worst, w), max(share, s)
-        b_ms, b_by = bound(15 * H * W, K2_OPS_PER_PIXEL * H * W)
-        ms, p_ms, e_ms = device_ms(kern), device_ms(plain), eager_ms(kern)
-        print(f"K2 {H}x{W}: max {worst} LSB on {share:.2e} of the values "
-              f"over {len(layouts)} plane layouts; "
-              f"kernel {ms:.5f} ms, plain {p_ms:.5f} ms, eager call "
-              f"{e_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}), share of bound "
-              f"{b_ms / ms:.3f}")
-        if (H, W) == (S, S):
-            report["lab_to_rgb_u8"] = dict(max_abs_err=worst, ms=ms,
-                                           plain_ms=p_ms, bound_ms=b_ms,
-                                           bound_by=b_by)
+            worst = max(worst[0], w), max(worst[1], s)
+            ms = kernel_ms[layout] = device_ms(
+                lambda: k2.lab_to_rgb_u8_hwc(*planes))
+            moved = traffic(planes, 3 * H * W)
+            nbytes = needed(planes, 3 * H * W)
+            b_ms, _ = bound(nbytes, K2_OPS_PER_PIXEL * H * W)
+            print(f"K2 {H}x{W} {layout} ({k2.load_modes(*planes)}): {w} LSB "
+                  f"on {s:.2e} of the values; kernel {ms:.5f} ms, moves "
+                  f"{moved / (H * W):.2f} B/px ({moved / ms / 1e9:.3f} TB/s),"
+                  f" bound {b_ms:.6f} ms at {nbytes / (H * W):.2f} B/px, "
+                  f"share {b_ms / ms:.3f}")
+        # the full-res getter's layout; contiguous planes elsewhere
+        layout = "stride-2 ab" if (H, W) == FULLRES_HW else "contiguous"
+        planes = layouts[layout]
+        p_ms = device_ms(lambda: k2.lab_to_rgb_u8_plain(*planes))
+        e_ms = eager_ms(lambda: k2.lab_to_rgb_u8_hwc(*planes))
+        print(f"K2 {H}x{W} {layout}: plain {p_ms:.5f} ms, eager call "
+              f"{e_ms:.5f} ms")
+        if (H, W) == FULLRES_HW:
+            b_ms, b_by = bound(15 * H * W, K2_OPS_PER_PIXEL * H * W)
+            report[k2.KERNEL.name] = dict(
+                ms=kernel_ms[layout], plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=[H, W],
+                layout="L contiguous, stride-2 ab (the full-res getter's)")
+
+        # the fused entry, on the click's layout and one scalar-load layout
+        ab_worst = 0.0
+        for layout in ("contiguous", "stride-3 L, planar ab"):
+            planes = layouts[layout]
+            rgb, got_ab = k2.lab_to_rgb_u8_ab(*planes)
+            if not torch.equal(rgb, k2.lab_to_rgb_u8_hwc(*planes)):
+                die(f"K2 fused entry at {H}x{W}, {layout}: its frame is not "
+                    f"the compose's")
+            d = float((got_ab - cs.requantized_ab(rgb)).abs().max())
+            if not d <= AB_BAR:
+                die(f"K2 fused entry at {H}x{W}, {layout}: ab off "
+                    f"requantized_ab by {d}")
+            ab_worst = max(ab_worst, d)
+        planes = layouts["contiguous"]
+        ms = device_ms(lambda: k2.lab_to_rgb_u8_ab(*planes))
+        def plain():
+            rgb = k2.lab_to_rgb_u8_plain(*planes)
+            return rgb, cs.requantized_ab(rgb)
+        p_ms = device_ms(plain)
+        e_ms = eager_ms(lambda: k2.lab_to_rgb_u8_ab(*planes))
+        b_ms, b_by = bound(23 * H * W, K2_AB_OPS_PER_PIXEL * H * W)
+        print(f"K2 fused {H}x{W}: frame byte-identical to the compose's, ab "
+              f"within {ab_worst:.2e} of requantized_ab; kernel {ms:.5f} ms,"
+              f" plain {p_ms:.5f} ms, eager call {e_ms:.5f} ms, bound "
+              f"{b_ms:.6f} ms at 23 B/px ({b_by}), share {b_ms / ms:.3f}")
+        if (H, W) == (S, S):                      # the click's frame
+            report[k2.KERNEL_AB.name] = dict(
+                ab_max_abs_err=ab_worst, ms=ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, shape=[H, W],
+                layout="L and planar ab contiguous (the click's)")
+    for k in (k2.KERNEL, k2.KERNEL_AB):   # one frame, byte for byte
+        report[k.name]["max_abs_err"] = worst[0]
+    print(f"K2 compose: max {worst[0]} LSB on {worst[1]:.2e} of the values "
+          f"over {len(K2_SIZES)} sizes and {len(layouts)} layouts (bar "
+          f"{K2_BAR[0]} LSB on < {K2_BAR[1]})")
     print("library_ms: null for K1 and K2: no single PyTorch call computes "
           "either function")
 
@@ -298,13 +417,13 @@ def main() -> int:
         frames["sup_fullres"] = m.get_sup_fullres()
         return m, frames, click_s
 
-    for k in (k1.KERNEL, k2.KERNEL):
+    for k in entries:
         k.launches = 0
     t0 = time.perf_counter()
     m, gpu, click_s = session(None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in (k1.KERNEL, k2.KERNEL)}
+    launches = {k.name: k.launches for k in entries}
     print(f"main path on the card: {wall:.2f} s, launches {launches}")
     for name, n in launches.items():
         if n == 0:
@@ -335,20 +454,35 @@ def main() -> int:
     # where a click's device time goes, for information
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            m.net_forward_table(*table)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_device = sorted((e for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA),
-                       key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+
+    def device_profile(fn, n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: -e.self_device_time_total)
+        kernels = sum(e.count for e in events
+                      if not e.key.startswith(("Memcpy", "Memset")))
+        return events, kernels / n, wall_ms
+
+    events, per_click, wall_ms = device_profile(
+        lambda: m.net_forward_table(*table), 5)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    copies = sum(e.count for e in events) / 5 - per_click
+    rgb = torch.from_numpy(gpu["click10"]).to(dev)
+    _, chain, _ = device_profile(lambda: cs.requantized_ab(rgb), 1)
     print(f"profile of 5 table clicks: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms (share {busy_ms / wall_ms:.3f}), "
-          f"{len(on_device)} distinct device activities")
-    for e in on_device[:12]:
+          f"{len(events)} distinct device activities; {per_click:.0f} device"
+          f" kernels and {copies:.0f} copies per click (the plain "
+          f"requantized_ab chain that K2's fused entry replaces is "
+          f"{chain:.0f} kernels)")
+    for e in events[:12]:
         print(f"  {e.self_device_time_total / 5:10.1f} us/click "
               f"{e.count // 5:4d}x  {e.key[:100]}")
 
@@ -382,7 +516,7 @@ def main() -> int:
 
     # 6. the kernels line
     kernels = []
-    for k in (k1.KERNEL, k2.KERNEL):
+    for k in entries:
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": f"ideepcolor_tpu_torch/csrc/{k.source}",

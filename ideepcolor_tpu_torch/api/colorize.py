@@ -243,7 +243,8 @@ class ColorizeImageBase:
         lab = _to_lab(src)
         self._fullres_hw = (H, W)
         self._dev_lab_fullres = lab
-        self._dev_l_fullres = lab[..., :1]
+        # contiguous, so K2 reads 4 B/px of L, not a stride-3 channel
+        self._dev_l_fullres = lab[..., :1].contiguous()
         self._lab_fullres_np = None
         Xd = self.Xd
         self._dev_rh = self._to_dev(linear_resize_matrix_np(Xd, H))
@@ -254,7 +255,7 @@ class ColorizeImageBase:
     def _set_img_lab_(self, src: torch.Tensor):
         lab = _to_lab(src)
         self._dev_lab_net = lab                          # (Xd, Xd, 3)
-        self._dev_l_net = lab[..., :1]                   # (Xd, Xd, 1)
+        self._dev_l_net = lab[..., :1].contiguous()      # (Xd, Xd, 1)
         self._img_lab_np = None
 
     def _set_img_lab_mc_(self):

@@ -4,25 +4,30 @@
 // (body _raster_kernel), which replays the live hints over (tile, S) slabs
 // with predicated overwrites.
 //
-// What bounds it on an H100: at the main path's shape (S = 256, a few to a
-// few hundred live hints) the kernel writes S*S*3 f32 (786 KB) and reads at
-// most 24 B per live hint, so the byte bound is ~0.24 us at 3.35 TB/s; the
-// box tests are up to 4 integer compares per (pixel, hint) scanned, which
-// only passes the byte bound when hundreds of hints are live. Either way
-// the launch itself (a few us) dominates; this kernel does not try to hide
-// it (CUDA-graph capture of the whole click is the tool for that).
+// What bounds it on an H100: bytes. At the main path's shape (S = 256, a
+// few to a few hundred live hints) the function writes S*S*3 f32 (786 KB)
+// and reads 24 B per live hint and the count: ~0.24 us at 3.35 TB/s. At
+// that size the launch itself (a few us) dominates; CUDA-graph capture of
+// the whole click is the tool for that, not this kernel.
 //
-// Design: one thread per output pixel, 16x16 pixels per block. The block
-// stages the live part of the table in shared memory (24 B per hint, at most
-// 6 KB for the 256-slot table) so every thread's scan reads shared memory,
-// not device memory. Each thread scans from slot count-1 down and stops at
-// the first box that covers it: that is last-hint-wins with an early exit,
-// and it writes exactly the value the plain version selects, so the two
-// are bit-exact. The box test is plain int compares against the inclusive
-// corners, with no clipping, so boxes with negative corners or corners past
-// S behave as in the JAX compare. Output is planar f32, (3, S, S): planes
-// 0 and 1 are ab, plane 2 is the mask, which is the channel order the U-Net
-// input concatenates (ab, mask) and needs no transpose.
+// Design: cull per tile, then scan. A block owns an 8 x 64 tile of the
+// output, 128 threads of four consecutive pixels of a row each.
+// - Cull: the block tests every live slot's box against the tile's
+//   rectangle and compacts the slots that touch it, in slot order, into
+//   shared memory with their values (a warp ballot and popc give each hit
+//   its place; per-warp counts give each warp its offset). With boxes of
+//   radius <= 12, a tile sees about ten of 200 live hints.
+// - Scan: each thread scans only that list, from its end, and stops when
+//   all four of its pixels are covered. The first cover from the end is the
+//   last covering live slot: the value the plain version's reversed argmax
+//   selects, so the two are bit-exact. Box tests are plain int compares
+//   against the inclusive corners, with no clipping, so boxes with negative
+//   corners or corners past S behave as in the JAX compare.
+// - Store: one float4 to each of the three planes when S is a multiple of 4
+//   (every group then starts on 16 bytes); other sizes store the four
+//   pixels one by one in the same kernel.
+// Output is planar f32, (3, S, S): planes 0 and 1 are ab, plane 2 the mask,
+// the channel order the U-Net input concatenates (ab, mask).
 
 #include <cstdint>
 
@@ -30,57 +35,108 @@
 
 namespace {
 
-constexpr int kBlock = 16;
+constexpr int kTileRows = 8;
+constexpr int kTileCols = 64;
+constexpr int kGroupsPerRow = kTileCols / 4;
+constexpr int kThreads = kTileRows * kGroupsPerRow;  // 128
+constexpr int kWarps = kThreads / 32;
 
-__global__ void raster_kernel(const int4* __restrict__ boxes,
-                              const float2* __restrict__ values, int count,
-                              int size, float* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads)
+    raster_kernel(const int4* __restrict__ boxes,
+                  const float2* __restrict__ values, int count, int size,
+                  float* __restrict__ out) {
   extern __shared__ int4 smem[];
   int4* s_box = smem;                                       // count x 16 B
   float2* s_val = reinterpret_cast<float2*>(smem + count);  // count x 8 B
+  __shared__ int s_hits[kWarps];
 
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int k = tid; k < count; k += blockDim.x * blockDim.y) {
-    s_box[k] = boxes[k];
-    s_val[k] = values[k];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ty0 = blockIdx.y * kTileRows, tx0 = blockIdx.x * kTileCols;
+  const int ty1 = min(ty0 + kTileRows, size) - 1;
+  const int tx1 = min(tx0 + kTileCols, size) - 1;
+
+  // cull: the slots whose box touches the tile, compacted in slot order
+  int n = 0;
+  for (int base = 0; base < count; base += kThreads) {
+    const int k = base + tid;
+    int4 bx = make_int4(0, 0, -1, -1);
+    bool hit = false;
+    if (k < count) {
+      bx = boxes[k];  // [y1, x1, y2, x2] inclusive
+      hit = bx.x <= ty1 && bx.z >= ty0 && bx.y <= tx1 && bx.w >= tx0;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) s_hits[warp] = __popc(ballot);
+    __syncthreads();
+    int at = n, total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? s_hits[w] : 0;
+      total += s_hits[w];
+    }
+    if (hit) {
+      at += __popc(ballot & ((1u << lane) - 1u));
+      s_box[at] = bx;
+      s_val[at] = values[k];
+    }
+    n += total;
+    __syncthreads();  // the list is complete; s_hits is free again
   }
-  __syncthreads();
 
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= size || y >= size) return;
-
-  float a = 0.f, b = 0.f, m = 0.f;
-  for (int k = count - 1; k >= 0; --k) {
-    const int4 bx = s_box[k];                  // [y1, x1, y2, x2] inclusive
-    if (y >= bx.x && x >= bx.y && y <= bx.z && x <= bx.w) {
-      const float2 v = s_val[k];
-      a = v.x;
-      b = v.y;
-      m = 1.f;
-      break;
+  // scan: last covering slot of the list for each of four pixels
+  const int y = ty0 + tid / kGroupsPerRow;
+  const int x0 = tx0 + 4 * (tid % kGroupsPerRow);
+  if (y >= size || x0 >= size) return;
+  float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f},
+        m[4] = {0.f, 0.f, 0.f, 0.f};
+  unsigned todo = size - x0 >= 4 ? 0xfu : (1u << (size - x0)) - 1u;
+  for (int k = n - 1; k >= 0 && todo; --k) {
+    const int4 bx = s_box[k];
+    if (y < bx.x || y > bx.z) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((todo >> j & 1u) && x0 + j >= bx.y && x0 + j <= bx.w) {
+        const float2 v = s_val[k];
+        a[j] = v.x;
+        b[j] = v.y;
+        m[j] = 1.f;
+        todo &= ~(1u << j);
+      }
     }
   }
-  const int64_t plane = static_cast<int64_t>(size) * size;
-  const int64_t p = static_cast<int64_t>(y) * size + x;
-  out[p] = a;
-  out[plane + p] = b;
-  out[2 * plane + p] = m;
+
+  const int plane = size * size;
+  const int p = y * size + x0;
+  if ((size & 3) == 0) {
+    *reinterpret_cast<float4*>(out + p) = make_float4(a[0], a[1], a[2], a[3]);
+    *reinterpret_cast<float4*>(out + plane + p) =
+        make_float4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<float4*>(out + 2 * plane + p) =
+        make_float4(m[0], m[1], m[2], m[3]);
+    return;
+  }
+  for (int j = 0; j < 4 && x0 + j < size; ++j) {
+    out[p + j] = a[j];
+    out[plane + p + j] = b[j];
+    out[2 * plane + p + j] = m[j];
+  }
 }
 
 }  // namespace
 
 // boxes: (count, 4) int32, 16-byte aligned; values: (count, 2) f32, 8-byte
 // aligned; count already clamped to [0, M] by the caller; out: (3, size,
-// size) f32. Returns cudaGetLastError() after the launch.
+// size) f32, 16-byte aligned, 3 * size * size < 2^31. Returns
+// cudaGetLastError() after the launch.
 extern "C" int ideepcolor_rasterize_hints(const void* boxes,
                                           const void* values, int count,
                                           int size, void* out,
                                           void* stream) {
-  const dim3 block(kBlock, kBlock);
-  const dim3 grid((size + kBlock - 1) / kBlock, (size + kBlock - 1) / kBlock);
-  const size_t smem = static_cast<size_t>(count) * (sizeof(int4) + sizeof(float2));
-  raster_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((size + kTileCols - 1) / kTileCols,
+                  (size + kTileRows - 1) / kTileRows);
+  const size_t smem =
+      static_cast<size_t>(count) * (sizeof(int4) + sizeof(float2));
+  raster_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(boxes), static_cast<const float2*>(values),
       count, size, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -4,7 +4,8 @@ Counterpart of ``ideepcolor_tpu/engine/pipeline.py``. There each stage
 chain is one jitted XLA program; PyTorch runs eagerly, so here each is a
 plain function whose fused steps are the hand-written kernels: K1 (hint
 rasterizer) at the head of the table click and K2 (Lab -> uint8 compose)
-at every frame.
+at every frame. The clicks take K2's fused entry, which also returns the
+requantized ab, the click's second output.
 
 The JAX package pads full-res planes to 256-px buckets so one compiled
 program serves many image sizes; eager PyTorch compiles nothing, so the
@@ -37,14 +38,6 @@ def compose_rgb_u8(img_l: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
     """(H,W,1) L + (H,W,2) ab -> (H,W,3) uint8 RGB through K2 (kept under
     the JAX package's name for its call sites)."""
     return k2.compose_frame_u8(img_l, ab)
-
-
-def requantized_ab(rgb_u8: torch.Tensor) -> torch.Tensor:
-    """uint8 RGB -> (H,W,2) ab of its own Lab.
-
-    Parity detail: the reference derives ``output_ab`` from the QUANTIZED
-    uint8 output frame, not from the raw prediction."""
-    return cs.rgb_to_lab(rgb_u8.to(torch.float32) / 255.0)[..., 1:]
 
 
 def fullres_fuse(l_full: torch.Tensor, ab_small: torch.Tensor,
@@ -80,7 +73,8 @@ def sup_fullres(planes: torch.Tensor, rh0: torch.Tensor,
 
 
 def make_table_click_program(apply_fn, size: int):
-    """The table click: K1 -> U-Net -> K2 -> requantized ab.
+    """The table click: K1 -> U-Net -> K2's fused entry (frame and
+    requantized ab).
 
     ``apply_fn(A (1,1,S,S), B (1,2,S,S), M (1,1,S,S)) -> (1,2,S,S)`` ab.
     The returned ``click(l_net (S,S,1), l_mc (S,S,1), boxes, values,
@@ -94,21 +88,20 @@ def make_table_click_program(apply_fn, size: int):
         hints = k1.rasterize_hints_planar(boxes, values, count, size)
         pred = apply_fn(l_mc.permute(2, 0, 1)[None], hints[None, :2],
                         hints[None, 2:])[0]
-        rgb = k2.lab_to_rgb_u8_hwc(l_net[..., 0], pred[0], pred[1])
-        return rgb, requantized_ab(rgb), hints
+        rgb, out_ab = k2.lab_to_rgb_u8_ab(l_net[..., 0], pred[0], pred[1])
+        return rgb, out_ab, hints
 
     return click
 
 
 def make_click_program(apply_fn):
-    """The dense click: ``apply_fn(*model_args) -> (1,2,H,W)`` ab, then K2
-    and the requantized ab. ``click(l_net, *model_args)`` gives
+    """The dense click: ``apply_fn(*model_args) -> (1,2,H,W)`` ab, then
+    K2's fused entry. ``click(l_net, *model_args)`` gives
     ``(rgb (H,W,3) uint8, out_ab (H,W,2))``."""
 
     @torch.no_grad()
     def click(l_net, *model_args):
         ab = apply_fn(*model_args)[0]
-        rgb = k2.lab_to_rgb_u8_hwc(l_net[..., 0], ab[0], ab[1])
-        return rgb, requantized_ab(rgb)
+        return k2.lab_to_rgb_u8_ab(l_net[..., 0], ab[0], ab[1])
 
     return click

@@ -100,6 +100,15 @@ def lab_to_rgb(lab: torch.Tensor) -> torch.Tensor:
     return xyz_to_rgb(lab_to_xyz(lab))
 
 
+def requantized_ab(rgb_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 RGB (..., 3) -> (..., 2) ab of its own Lab, the /255
+    dequantization first.
+
+    Parity detail: the reference derives ``output_ab`` from the QUANTIZED
+    uint8 output frame, not from the raw prediction."""
+    return rgb_to_lab(rgb_u8.to(torch.float32) / 255.0)[..., 1:]
+
+
 def lab_to_rgb_u8(lab: torch.Tensor) -> torch.Tensor:
     """Lab -> uint8 RGB: ``(clip(lab2rgb(lab), 0, 1) * 255)`` truncated, the
     reference's ``lab2rgb_transpose`` convention."""

@@ -2,10 +2,12 @@
 
 Each ``.cu`` source is compiled by ``nvcc`` into a shared library of its own
 with a plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds). Libraries are built at first use into ``build/kernels``
-beside the package, named by a hash of their sources and flags, so an edited
-source rebuilds and an unchanged one is reused. :func:`build_all` starts one
-``nvcc`` per missing library, all at once, and waits for all of them.
+build takes seconds). A library may export several entry points, each a
+:class:`Kernel` of its own with its own count of launches. Libraries are
+built at first use into ``build/kernels`` beside the package, named by a
+hash of their sources and flags, so an edited source rebuilds and an
+unchanged one is reused. :func:`build_all` starts one ``nvcc`` per missing
+library, all at once, and waits for all of them.
 
 Nothing here runs at import: a machine without a card or a CUDA toolkit can
 import every module of the port. Asking for a kernel there raises.
@@ -25,7 +27,8 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 # Hopper's own target (wgmma and setmaxnreg need the "a"). No
-# --use_fast_math: it would swap powf for __powf in K2 (see its source).
+# --use_fast_math: K2 picks its cheaper math forms one by one (see its
+# source).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,9 +46,9 @@ def _nvcc() -> str:
 
 
 class Kernel:
-    """One hand-written kernel: its source, its C entry point and its count
-    of launches. ``launch`` calls the C function, raises on a non-zero
-    ``cudaGetLastError()`` and only then adds one to ``launches``."""
+    """One entry point of a hand-written kernel: its source, its C symbol
+    and its count of launches. ``launch`` calls the C function, raises on a
+    non-zero ``cudaGetLastError()`` and only then adds one to ``launches``."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  replaces: str):
@@ -92,28 +95,27 @@ class Kernel:
 
 
 def build_all(kernels) -> float:
-    """Build (one nvcc each, in parallel) and load every kernel in
+    """Build (one nvcc per library, in parallel) and load every kernel in
     ``kernels`` that is not loaded yet. Returns the wall seconds spent."""
     t0 = time.perf_counter()
     todo = [k for k in kernels if k._fn is None]
-    jobs = []
+    jobs = {}
     for k in todo:
         path = k.library_path()
-        if path.exists():
+        if path.exists() or path in jobs:
             continue
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / k.source)]
-        jobs.append((k, path, tmp, subprocess.Popen(
+        jobs[path] = (k.source, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+            text=True))
     failures = []
-    for k, path, tmp, proc in jobs:
+    for path, (source, tmp, proc) in jobs.items():
         log, _ = proc.communicate()
-        k.ptxas_log = log
         if proc.returncode != 0:
-            failures.append(f"{k.source}:\n{log}")
+            failures.append(f"{source}:\n{log}")
             continue
         os.replace(tmp, path)
         path.with_suffix(".log").write_text(log)
@@ -121,7 +123,7 @@ def build_all(kernels) -> float:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     for k in todo:
         path = k.library_path()
-        if not k.ptxas_log and path.with_suffix(".log").exists():
-            k.ptxas_log = path.with_suffix(".log").read_text()
+        log = path.with_suffix(".log")
+        k.ptxas_log = log.read_text() if log.exists() else ""
         k._load(path)
     return time.perf_counter() - t0

@@ -1,16 +1,20 @@
 """Kernel K2: fused Lab -> clipped, truncated uint8 RGB (``csrc/
-colorspace_kernel.cu``).
+colorspace_kernel.cu``), with two entry points.
 
-Counterpart of ``ideepcolor_tpu/ops/pallas/colorspace_kernel.py``
-(``lab_to_rgb_u8_planar`` and its wrapper ``compose_frame_u8``), with the
-same signatures. It is the compose of every frame on the port's main path:
-the click, the full-res getter, the mask, sup and gray getters.
+- :func:`lab_to_rgb_u8_hwc` (the compose) is the counterpart of
+  ``ideepcolor_tpu/ops/pallas/colorspace_kernel.py`` (``lab_to_rgb_u8_planar``
+  and its wrapper ``compose_frame_u8``, with the same signatures here). It is
+  the compose of the full-res, mask, sup and gray getters.
+- :func:`lab_to_rgb_u8_ab` (the click's fused entry) also returns the ab of
+  the uint8 frame's own Lab, which the JAX click computes in the same XLA
+  program (``requantized_ab``). Both clicks call it.
 
 The kernel reads the three planes through their own strides, so callers
-pass views of whatever layout they hold; the frame comes out (H, W, 3).
-On a CPU tensor the wrapper returns the plain version
-(:func:`lab_to_rgb_u8_plain`); on a CUDA tensor it launches the kernel or
-raises, and never falls back.
+pass views of whatever layout they hold; :func:`load_modes` picks, from the
+strides and alignment, how each plane is loaded (one of a few compiled
+instantiations). On a CPU tensor a wrapper returns the plain version
+(:func:`lab_to_rgb_u8_plain`, then ``ops.colorspace.requantized_ab``); on a
+CUDA tensor it launches the kernel or raises, and never falls back.
 """
 
 from __future__ import annotations
@@ -19,20 +23,34 @@ import ctypes
 
 import torch
 
+from .. import colorspace as cs
 from ..colorspace import WHITE, XYZ2RGB
 from .build import Kernel
+
+_PLANES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] * 3
+_SHAPE = [ctypes.c_int] * 4                 # height, width, l_mode, ab_mode
+_REPLACES = "ideepcolor_tpu/ops/pallas/colorspace_kernel.py:78"
 
 KERNEL = Kernel(
     name="lab_to_rgb_u8",
     source="colorspace_kernel.cu",
     symbol="ideepcolor_lab_to_rgb_u8",
-    argtypes=[ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-              ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-              ctypes.c_void_p],
-    replaces="ideepcolor_tpu/ops/pallas/colorspace_kernel.py:78",
+    argtypes=_PLANES + _SHAPE + [ctypes.c_void_p, ctypes.c_void_p],
+    replaces=_REPLACES,
 )
+# The fused click entry: a second symbol of the same library.
+KERNEL_AB = Kernel(
+    name="lab_to_rgb_u8_ab",
+    source="colorspace_kernel.cu",
+    symbol="ideepcolor_lab_to_rgb_u8_ab",
+    argtypes=_PLANES + _SHAPE + [ctypes.c_void_p] * 4,
+    replaces=_REPLACES,
+)
+
+# How the kernel loads a plane (the source's Mode): float4 loads, scalar
+# loads through the strides, or one load of a stride-0 plane.
+VEC, ANY, ZERO = 0, 1, 2
+_INT32 = 2 ** 31
 
 _KAPPA = 24389.0 / 27.0
 
@@ -66,35 +84,112 @@ def lab_to_rgb_u8_plain(l: torch.Tensor, a: torch.Tensor,
                         for c in range(3)], dim=-1)
 
 
+def _plane_mode(t: torch.Tensor, width: int) -> int:
+    sy, sx = t.stride()
+    if sy == 0 and sx == 0:
+        return ZERO
+    # float4 loads of a group starting at a 4-aligned flat output index
+    # land on 16 bytes iff the plane starts there and its rows drift from
+    # the output's by a multiple of 4 elements
+    if sx == 1 and t.data_ptr() % 16 == 0 and (sy - width) % 4 == 0:
+        return VEC
+    return ANY
+
+
+def load_modes(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               fused: bool = False) -> tuple[int, int]:
+    """The kernel instantiation for these (H, W) planes: (L mode, ab mode).
+
+    a and b share one mode, ANY where theirs differ. The compose is built
+    for a VEC L with any ab mode, the fused entry for (VEC, VEC), the
+    click's layout; every other layout takes (ANY, ANY)."""
+    W = l.shape[1]
+    am, bm = _plane_mode(a, W), _plane_mode(b, W)
+    abm = am if am == bm else ANY
+    if _plane_mode(l, W) != VEC or (fused and abm != VEC):
+        return ANY, ANY
+    return VEC, abm
+
+
+def _check_planes(name: str, l: torch.Tensor, a: torch.Tensor,
+                  b: torch.Tensor) -> tuple[int, int]:
+    planes = (l, a, b)
+    if l.device.type != "cuda" or any(t.device != l.device for t in planes):
+        raise ValueError(f"{name}: L, a and b must lie on one CUDA device "
+                         f"(or the CPU), got "
+                         f"{[str(t.device) for t in planes]}")
+    if any(t.dtype != torch.float32 for t in planes):
+        raise ValueError(f"{name}: planes must be float32, got "
+                         f"{[t.dtype for t in planes]}")
+    if any(t.dim() != 2 or t.shape != l.shape for t in planes):
+        raise ValueError(f"{name}: want three (H, W) planes, got "
+                         f"{[tuple(t.shape) for t in planes]}")
+    if any(s < 0 for t in planes for s in t.stride()):
+        raise ValueError(f"{name}: negative strides are not taken")
+    H, W = l.shape
+    # 32-bit offsets in the kernel; rows on the grid's y axis
+    if (H > 65535 or 3 * H * W >= _INT32
+            or any((H - 1) * t.stride(0) + (W - 1) * t.stride(1) >= _INT32
+                   for t in planes)):
+        raise ValueError(f"{name}: a {H}x{W} frame with strides "
+                         f"{[t.stride() for t in planes]} is past the "
+                         f"kernel's 32-bit offsets or 65535 rows")
+    return H, W
+
+
+def _launch(kernel: Kernel, l, a, b, *outs) -> None:
+    lm, abm = load_modes(l, a, b, fused=kernel is KERNEL_AB)
+    args = []
+    for t in (l, a, b):
+        args += [t.data_ptr(), t.stride(0), t.stride(1)]
+    kernel.launch(*args, *l.shape, lm, abm, *outs,
+                  torch.cuda.current_stream(l.device).cuda_stream)
+
+
 def lab_to_rgb_u8_hwc(l: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor) -> torch.Tensor:
     """(H, W) f32 L, a, b planes of any strides -> (H, W, 3) uint8 frame."""
     if l.device.type == "cpu":
         return lab_to_rgb_u8_plain(l, a, b)
-    planes = (l, a, b)
-    if l.device.type != "cuda" or any(t.device != l.device for t in planes):
-        raise ValueError("lab_to_rgb_u8: L, a and b must lie on one CUDA "
-                         "device (or the CPU), got "
-                         f"{[str(t.device) for t in planes]}")
-    if any(t.dtype != torch.float32 for t in planes):
-        raise ValueError("lab_to_rgb_u8: planes must be float32, got "
-                         f"{[t.dtype for t in planes]}")
-    if any(t.dim() != 2 or t.shape != l.shape for t in planes):
-        raise ValueError("lab_to_rgb_u8: want three (H, W) planes, got "
-                         f"{[tuple(t.shape) for t in planes]}")
-    if any(s < 0 for t in planes for s in t.stride()):
-        raise ValueError("lab_to_rgb_u8: negative strides are not taken")
-    H, W = l.shape
+    H, W = _check_planes("lab_to_rgb_u8", l, a, b)
     KERNEL.load()                       # no library -> raise, allocate nothing
     out = torch.empty((H, W, 3), dtype=torch.uint8, device=l.device)
-    if H * W == 0:
-        return out
-    args = []
-    for t in planes:
-        args += [t.data_ptr(), t.stride(0), t.stride(1)]
-    KERNEL.launch(*args, H, W, out.data_ptr(),
-                  torch.cuda.current_stream(l.device).cuda_stream)
+    if H * W:
+        _launch(KERNEL, l, a, b, out.data_ptr())
     return out
+
+
+_SRGB_LUT: dict = {}
+
+
+def srgb_lut(device: torch.device) -> torch.Tensor:
+    """srgb_to_linear(v / 255) for v in 0..255, (256,) f32 on ``device``:
+    the fused entry's table, made once per device with the plain version's
+    own ops (``ops.colorspace.requantized_ab``)."""
+    lut = _SRGB_LUT.get(device)
+    if lut is None:
+        v = torch.arange(256, dtype=torch.uint8, device=device)
+        lut = _SRGB_LUT[device] = cs.srgb_to_linear(
+            v.to(torch.float32) / 255.0).contiguous()
+    return lut
+
+
+def lab_to_rgb_u8_ab(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The click's fused entry: (H, W) f32 L, a, b planes -> (rgb (H, W, 3)
+    uint8, ab (H, W, 2) f32), where ab is the Lab ab of the uint8 frame
+    itself (``requantized_ab(rgb)``), computed in the kernel's epilogue."""
+    if l.device.type == "cpu":
+        rgb = lab_to_rgb_u8_plain(l, a, b)
+        return rgb, cs.requantized_ab(rgb)
+    H, W = _check_planes("lab_to_rgb_u8_ab", l, a, b)
+    KERNEL_AB.load()                    # no library -> raise, allocate nothing
+    rgb = torch.empty((H, W, 3), dtype=torch.uint8, device=l.device)
+    ab = torch.empty((H, W, 2), dtype=torch.float32, device=l.device)
+    if H * W:
+        _launch(KERNEL_AB, l, a, b, rgb.data_ptr(), ab.data_ptr(),
+                srgb_lut(l.device).data_ptr())
+    return rgb, ab
 
 
 def lab_to_rgb_u8_planar(l: torch.Tensor, a: torch.Tensor,

@@ -28,9 +28,12 @@ KERNEL = Kernel(
     replaces="ideepcolor_tpu/ops/pallas/hints_kernel.py:59",
 )
 
-# Dynamic shared memory stays under the 48 KB a block gets without opting
-# in: 24 B per staged hint.
-_MAX_SLOTS = 48 * 1024 // 24
+# Dynamic shared memory (24 B per slot of the culled list) plus the
+# kernel's few static bytes stay under the 48 KB a block gets without
+# opting in.
+_MAX_SLOTS = (48 * 1024 - 64) // 24
+# The kernel's offsets are 32-bit: 3 * size * size < 2^31.
+_MAX_SIZE = 26754
 
 
 def rasterize_hints_planar(boxes: torch.Tensor, values: torch.Tensor, count,
@@ -57,9 +60,9 @@ def rasterize_hints_planar(boxes: torch.Tensor, values: torch.Tensor, count,
     if boxes.data_ptr() % 16 or values.data_ptr() % 8:
         raise ValueError("rasterize_hints: boxes must be 16-byte and values "
                          "8-byte aligned")
-    if M > _MAX_SLOTS or size < 1:
+    if M > _MAX_SLOTS or not 1 <= size <= _MAX_SIZE:
         raise ValueError(f"rasterize_hints: M={M} (at most {_MAX_SLOTS}), "
-                         f"size={size} (at least 1)")
+                         f"size={size} (1 to {_MAX_SIZE})")
     n = min(max(int(count), 0), M)
     KERNEL.load()                       # no library -> raise, allocate nothing
     out = torch.empty((3, size, size), dtype=torch.float32,

@@ -74,7 +74,7 @@ def test_white_point_truncates_as_the_jax_compose():
 def test_requantized_ab_matches_jax():
     """ab of the uint8 frame's own Lab; same 2e-4 bound as rgb_to_lab."""
     rgb = RNG.integers(0, 256, (64, 64, 3), dtype=np.uint8)
-    got = tP.requantized_ab(torch.from_numpy(rgb)).numpy()
+    got = tcs.requantized_ab(torch.from_numpy(rgb)).numpy()
     want = np.asarray(jP.requantized_ab(jnp.asarray(rgb)))
     assert got.shape == (64, 64, 2)
     assert np.max(np.abs(got - want)) < 2e-4

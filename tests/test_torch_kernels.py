@@ -1,11 +1,13 @@
-"""Port kernels K1 (hint rasterizer) and K2 (Lab -> uint8 compose) against
-the JAX package, on the CPU.
+"""Port kernels K1 (hint rasterizer) and K2 (Lab -> uint8 compose, and its
+fused click entry with the requantized ab) against the JAX package, on the
+CPU.
 
 On a CPU tensor each wrapper runs its kernel's plain version, so these tests
 hold that plain version to the JAX function and to the Pallas kernel run in
 interpret mode (as tests/test_pallas_resize.py runs it). The CUDA kernels
 themselves are held to the same plain versions on the card by
-chip_smoke.py. Inputs are made from a seed with numpy.
+chip_smoke.py; what the wrappers decide before a launch (K2's load modes,
+input checks) is tested here. Inputs are made from a seed with numpy.
 """
 
 import numpy as np
@@ -14,10 +16,12 @@ import torch
 
 import jax.numpy as jnp
 
+from ideepcolor_tpu.engine import pipeline as jP
 from ideepcolor_tpu.ops import colorspace as jcs
 from ideepcolor_tpu.ops import hints as jhints
 from ideepcolor_tpu.ops.pallas import colorspace_kernel as jck
 from ideepcolor_tpu.ops.pallas import hints_kernel as jhk
+from ideepcolor_tpu_torch.ops import colorspace as tcs
 from ideepcolor_tpu_torch.ops import hints as thints
 from ideepcolor_tpu_torch.ops.cuda import build
 from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as tck
@@ -138,6 +142,88 @@ def test_k2_planar_signature_and_strided_planes():
                        planar.permute(1, 2, 0))
 
 
+@pytest.mark.parametrize("H,W", [(5, 7), (100, 128), (64, 64)])
+def test_k2_fused_entry_plain_vs_jax_click(H, W):
+    """The fused click entry's CPU path against the JAX click's two outputs,
+    compose_rgb_u8 then requantized_ab: frame <= 1 LSB on < 1e-3 of the
+    pixels, ab within 1e-3 where the frames agree."""
+    l, ab = _lab(H * W + 1, H, W, ab_range=110)
+    lt, abt = torch.from_numpy(l), torch.from_numpy(ab)
+    rgb, out_ab = tck.lab_to_rgb_u8_ab(lt[..., 0], abt[..., 0], abt[..., 1])
+    assert rgb.shape == (H, W, 3) and rgb.dtype == torch.uint8
+    assert out_ab.shape == (H, W, 2) and out_ab.dtype == torch.float32
+    rgb_j = jP.compose_rgb_u8(jnp.asarray(l), jnp.asarray(ab))
+    ab_j = np.asarray(jP.requantized_ab(rgb_j))
+    rgb_j = np.asarray(rgb_j)
+    d = np.abs(rgb.numpy().astype(int) - rgb_j.astype(int)).max(-1)
+    assert d.max() <= 1 and np.mean(d != 0) < 1e-3
+    same = d == 0
+    assert np.abs(out_ab.numpy() - ab_j).max(-1)[same].max() <= 1e-3
+    assert torch.equal(rgb, tck.lab_to_rgb_u8_hwc(lt[..., 0], abt[..., 0],
+                                                  abt[..., 1]))
+
+
+def test_k2_srgb_lut_is_the_plain_dequantization():
+    """The fused entry's table holds, for each uint8 value, exactly what
+    requantized_ab computes for it before the 3x3."""
+    v = torch.arange(256, dtype=torch.uint8)
+    lut = tck.srgb_lut(torch.device("cpu"))
+    assert lut.shape == (256,) and lut.dtype == torch.float32
+    assert torch.equal(lut, tcs.srgb_to_linear(v.to(torch.float32) / 255.0))
+    assert tck.srgb_lut(torch.device("cpu")) is lut
+
+
+def _planes(case):
+    """(L, a, b) CPU planes of one layout, and the load modes K2 takes for
+    its compose and its fused entry."""
+    V, A, Z = tck.VEC, tck.ANY, tck.ZERO
+    H, W = 6, 10                                   # W not a multiple of 4
+    lab = torch.rand(H, W, 3)
+    l = lab[..., 0].contiguous()
+    ab = lab[..., 1:].permute(2, 0, 1).contiguous()
+    if case == "contiguous":
+        return (l, ab[0], ab[1]), (V, V), (V, V)
+    if case == "stride-2 ab":
+        hwc = lab[..., 1:].contiguous()
+        return (l, hwc[..., 0], hwc[..., 1]), (V, A), (A, A)
+    if case == "stride-3 L":
+        return (lab[..., 0], ab[0], ab[1]), (A, A), (A, A)
+    if case == "stride-0 ab":
+        zero = torch.zeros(()).expand(H, W)
+        return (l, zero, zero), (V, Z), (A, A)
+    if case == "misaligned a":                     # 4 bytes off 16
+        a = torch.empty(H * W + 4)[1:H * W + 1].view(H, W)
+        return (l, a, ab[1]), (V, A), (A, A)
+    if case == "planar ab, odd plane size":        # b starts at 15 * 4 B
+        ab = torch.rand(2, 3, 5)
+        return (torch.rand(3, 5), ab[0], ab[1]), (V, A), (A, A)
+    if case == "row crop, drift 2":
+        # rows 12 elements apart, the output's 10: a 4-aligned output group
+        # is not 16-byte aligned in these planes on every row
+        big = torch.rand(3, H, W + 2)
+        return (big[0, :, :W], big[1, :, :W], big[2, :, :W]), (A, A), (A, A)
+    if case == "row crop, drift 4":
+        big = torch.rand(3, H, W + 4)
+        return (big[0, :, :W], big[1, :, :W], big[2, :, :W]), (V, V), (V, V)
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", [
+    "contiguous", "stride-2 ab", "stride-3 L", "stride-0 ab", "misaligned a",
+    "planar ab, odd plane size", "row crop, drift 2", "row crop, drift 4"])
+def test_k2_load_modes_follow_strides_and_alignment(case):
+    """K2's wrapper picks the kernel instantiation from the planes' strides
+    and alignment: float4 loads only where every full group of four
+    pixels lands on 16 bytes, one load of a stride-0 plane, scalar loads
+    otherwise; a scalar-load L takes (ANY, ANY), and so does the fused
+    entry unless all three planes take float4 loads."""
+    planes, compose, fused = _planes(case)
+    if case == "planar ab, odd plane size":
+        assert planes[2].data_ptr() % 16 == 12
+    assert tck.load_modes(*planes) == compose
+    assert tck.load_modes(*planes, fused=True) == fused
+
+
 class _OnCuda:
     """A CPU tensor that reports a CUDA device: what a wrapper sees when it
     is handed a card tensor."""
@@ -157,19 +243,23 @@ def test_wrappers_raise_on_cuda_without_kernel(monkeypatch):
     result."""
     monkeypatch.setattr(build, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("no nvcc")))
-    for k in (thk.KERNEL, tck.KERNEL):
+    for k in (thk.KERNEL, tck.KERNEL, tck.KERNEL_AB):
         monkeypatch.setattr(k, "_fn", None)
         monkeypatch.setattr(k, "library_path",
                             lambda: build.BUILD_DIR / "missing.so")
     boxes, vals, n = _table(1, 3, 16)
-    before = (thk.KERNEL.launches, tck.KERNEL.launches)
+    before = (thk.KERNEL.launches, tck.KERNEL.launches,
+              tck.KERNEL_AB.launches)
     with pytest.raises(RuntimeError, match="nvcc"):
         thk.rasterize_hints_planar(_OnCuda(torch.from_numpy(boxes)),
                                    _OnCuda(torch.from_numpy(vals)), n, 16)
     plane = _OnCuda(torch.zeros(4, 4))
     with pytest.raises(RuntimeError, match="nvcc"):
         tck.lab_to_rgb_u8_hwc(plane, plane, plane)
-    assert (thk.KERNEL.launches, tck.KERNEL.launches) == before
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tck.lab_to_rgb_u8_ab(plane, plane, plane)
+    assert (thk.KERNEL.launches, tck.KERNEL.launches,
+            tck.KERNEL_AB.launches) == before
 
 
 def test_wrappers_reject_bad_inputs_before_launch():
@@ -183,3 +273,19 @@ def test_wrappers_reject_bad_inputs_before_launch():
     with pytest.raises(ValueError, match="one CUDA device"):
         tck.lab_to_rgb_u8_hwc(cuda(torch.zeros(4, 4)), torch.zeros(4, 4),
                               torch.zeros(4, 4))
+    for entry in (tck.lab_to_rgb_u8_hwc, tck.lab_to_rgb_u8_ab):
+        with pytest.raises(ValueError, match="float32"):
+            p = cuda(torch.zeros(4, 4, dtype=torch.float64))
+            entry(p, p, p)
+        with pytest.raises(ValueError, match="one CUDA device"):
+            entry(cuda(torch.zeros(4, 4)), torch.zeros(4, 4),
+                  torch.zeros(4, 4))
+        with pytest.raises(ValueError, match=r"\(H, W\) planes"):
+            entry(cuda(torch.zeros(4, 4)), cuda(torch.zeros(4, 5)),
+                  cuda(torch.zeros(4, 4)))
+        with pytest.raises(ValueError, match="32-bit"):  # 65536 rows
+            p = cuda(torch.zeros(()).expand(65536, 1))
+            entry(p, p, p)
+    with pytest.raises(ValueError, match="size"):
+        thk.rasterize_hints_planar(cuda(torch.zeros(4, 4, dtype=torch.int32)),
+                                   cuda(torch.zeros(4, 2)), 1, 30000)
