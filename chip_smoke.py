@@ -24,6 +24,10 @@ or more each; any failure exits non-zero:
    stride-2 ab views (the full-res getter), stride-0 zero ab (the
    mask and gray getters) and a plane 4 bytes off 16-byte alignment; each
    timed, with the bytes the layout really moves beside the 15 B/px bound.
+   Then the dist session's two compose shapes in its own layouts, under
+   the same bar: the 512x512 window frame (contiguous L, the two channels
+   of a zoom_with_matrices output; timed) and the 1 x K palette (three
+   stride-3 planes of a (K,3) Lab tensor) at K = 1, 9 and 25.
    The fused entry: its frame byte-identical to the compose's, its ab
    within 1e-3 of requantized_ab of that frame, timed;
 5. the main path: ColorizeImageTorch(Xd=256) with the bundled full-width
@@ -35,11 +39,33 @@ or more each; any failure exits non-zero:
    1e-3 of the pixels of each frame, output_ab within 1e-3 where the
    frames agree); click latency, and a profile of five clicks that says
    where the device time goes and how many device kernels a click runs;
-6. one JSON line listing each kernel entry with its launches on the main
-   path, its error against the plain version, its time, the plain
-   version's, its bound and what sets it, and the shape and plane layout
-   those numbers were measured at;
-7. last line: {"ok": true, "device": {...}}.
+6. the dist session, the GUI's second path: ColorizeImageTorch and
+   ColorizeImageTorchDist with the teacher at Xd=256 on the same image --
+   predict_dist_table, a table click, ten click+suggest clicks
+   (net_forward_table_win_suggest) with a 512-px window and cubic matrices,
+   get_ab_reccs, suggest_table (K=9), compute_entropy and snap_ab -- with
+   the launch counts read around it apart from phase 5's (K1 and both K2
+   entries must launch here too). Checked: the map's shape, finiteness and
+   row sums; each click's net frame byte-identical to net_forward_table's
+   for the same table when cuDNN's deterministic kernels are chosen (its
+   default transposed convs accumulate with atomics, so two forwards of
+   one input differ in the last bits: the session's own frames are held
+   to the frame bound below); the last window frame against K2's plain
+   version on the session's own tensors; palette row 0 the previous
+   frame's pixel;
+   confidences sorted and summing to 1; centers inside [-110, 110]. Against
+   a CPU twin of the session (fewer clicks): the distribution map, the
+   window frames, the entropy, snap_ab, and the k-means chain's
+   deterministic cores on shared random numbers (bins_from_uniform,
+   _lloyd). Timed: the click+suggest click, predict_dist_table and
+   suggest_table on the host clock, the device kernels per click+suggest
+   click and the k-means chain alone from the profiler, and how far 20
+   forwards of one table lie apart with cuDNN's default kernels;
+7. one JSON line listing each kernel entry with its launches on both paths,
+   its error against the plain version, its time, the plain version's, its
+   bound and what sets it, and the shape and plane layout those numbers
+   were measured at;
+8. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -71,6 +97,11 @@ K2_SIZES = ((S, S), FULLRES_HW, (1536, 2048))
 FRAME_BOUND_LSB = 1          # card vs CPU session, per channel
 FRAME_BOUND_SHARE = 1e-3     # of the pixels of any one frame
 WEIGHTS = "weights/teacher.npz"
+WIN = 512                    # the GUI's window size
+SUGGEST_K = 9                # the GUI's palette
+DIST_CPU_CLICKS = 2          # of the ten click+suggest clicks, on the CPU
+MAP_BOUND = 1e-5             # distribution map, card vs CPU, max |d p|
+BINS_MOVED_BOUND = 5         # of 25000 samples: f32 cumsum order differs
 
 
 def die(msg: str) -> None:
@@ -227,9 +258,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script needs the card",
               file=sys.stderr)
         return 1
-    from ideepcolor_tpu_torch.api import ColorizeImageTorch
+    from ideepcolor_tpu_torch.api import (ColorizeImageTorch,
+                                          ColorizeImageTorchDist)
+    from ideepcolor_tpu_torch.data import lab_gamut
+    from ideepcolor_tpu_torch.engine import pipeline as P
     from ideepcolor_tpu_torch.ops import colorspace as cs
     from ideepcolor_tpu_torch.ops import hints
+    from ideepcolor_tpu_torch.ops import kmeans as km
+    from ideepcolor_tpu_torch.ops import resize
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
@@ -380,10 +416,55 @@ def main() -> int:
                 ab_max_abs_err=ab_worst, ms=ms, plain_ms=p_ms,
                 bound_ms=b_ms, bound_by=b_by, shape=[H, W],
                 layout="L and planar ab contiguous (the click's)")
+    # the dist session's two compose shapes, in its own layouts
+    cubic = torch.from_numpy(resize.cubic_resize_matrix_np(S, WIN)).to(dev)
+    win_ab = resize.zoom_with_matrices(
+        torch.from_numpy(rng.uniform(-110, 110, (S, S, 2)).astype(
+            np.float32)).to(dev), cubic, cubic)
+    win_l = torch.from_numpy(rng.uniform(0, 100, (WIN, WIN, 1)).astype(
+        np.float32)).to(dev)
+    planes = (win_l[..., 0], win_ab[..., 0], win_ab[..., 1])
+    w, s = lsb(k2.lab_to_rgb_u8_hwc(*planes), k2.lab_to_rgb_u8_plain(*planes))
+    if w > K2_BAR[0] or s >= K2_BAR[1]:
+        die(f"K2 at the {WIN}x{WIN} window frame: {w} LSB on {s:.2e} of the "
+            f"values")
+    worst = max(worst[0], w), max(worst[1], s)
+    ms = device_ms(lambda: k2.lab_to_rgb_u8_hwc(*planes))
+    p_ms = device_ms(lambda: k2.lab_to_rgb_u8_plain(*planes))
+    b_ms, _ = bound(15 * WIN * WIN, K2_OPS_PER_PIXEL * WIN * WIN)
+    print(f"K2 {WIN}x{WIN} window frame, contiguous L and a zoom output's ab "
+          f"({k2.load_modes(*planes)}): {w} LSB on {s:.2e} of the values; "
+          f"kernel {ms:.5f} ms, plain {p_ms:.5f} ms, bound {b_ms:.6f} ms, "
+          f"share {b_ms / ms:.3f}")
+    pal_modes, pal_off, pal_values, pal_worst = set(), 0, 0, 0
+    for K in (1, SUGGEST_K, 25):
+        for _ in range(64):
+            l_net = torch.from_numpy(rng.uniform(0, 100, (S, S, 1)).astype(
+                np.float32)).to(dev)
+            centers = torch.from_numpy(rng.uniform(-110, 110, (K, 2)).astype(
+                np.float32)).to(dev)
+            lab = P._palette_lab(l_net, int(rng.integers(S)),
+                                 int(rng.integers(S)), centers)
+            planes = tuple(lab[None, :, c] for c in range(3))
+            d = (k2.lab_to_rgb_u8_hwc(*planes).int()
+                 - k2.lab_to_rgb_u8_plain(*planes).int()).abs()
+            pal_modes.add(k2.load_modes(*planes))
+            pal_worst = max(pal_worst, int(d.max()))
+            pal_off += int((d != 0).sum())
+            pal_values += d.numel()
+    if pal_worst > K2_BAR[0] or pal_off / pal_values >= K2_BAR[1]:
+        die(f"K2 at the 1 x K palette: {pal_worst} LSB on {pal_off} of "
+            f"{pal_values} values")
+    worst = max(worst[0], pal_worst), max(worst[1], pal_off / pal_values)
+    print(f"K2 1 x K palette, K = 1, {SUGGEST_K} and 25, 64 random palettes "
+          f"each, stride-3 planes of a (K,3) Lab tensor ({sorted(pal_modes)}):"
+          f" {pal_off} of {pal_values} values off the plain version, max "
+          f"{pal_worst} LSB")
     for k in (k2.KERNEL, k2.KERNEL_AB):   # one frame, byte for byte
         report[k.name]["max_abs_err"] = worst[0]
     print(f"K2 compose: max {worst[0]} LSB on {worst[1]:.2e} of the values "
-          f"over {len(K2_SIZES)} sizes and {len(layouts)} layouts (bar "
+          f"over {len(K2_SIZES)} sizes and {len(layouts)} layouts, the "
+          f"{WIN}x{WIN} window frame and the 1 x K palettes (bar "
           f"{K2_BAR[0]} LSB on < {K2_BAR[1]})")
     print("library_ms: null for K1 and K2: no single PyTorch call computes "
           "either function")
@@ -514,16 +595,294 @@ def main() -> int:
           f"LSB on < {FRAME_BOUND_SHARE}); output_ab within {worst_ab:.2e} "
           f"where the frames agree (bound 1e-3)")
 
-    # 6. the kernels line
+    # 6. the dist session on the card, launches counted apart from phase
+    # 5's; then its CPU twin on fewer clicks
+    clicks = session_hints(10)
+    tables = [hints.points_json_to_table(clicks[:i], S)
+              for i in range(len(clicks) + 1)]
+    snap_colors = np.random.default_rng(9).integers(
+        0, 256, (8, 3)).astype(np.float32)
+
+    def dist_session(device, n_clicks):
+        m = ColorizeImageTorch(Xd=S, device=device)
+        m.prep_net(path=WEIGHTS)
+        d = ColorizeImageTorchDist(Xd=S, device=device)
+        d.prep_net(path=WEIGHTS)
+        im = image(5, *FULLRES_HW)
+        m.load_image_array(im)
+        d.set_image(m.img_rgb)             # the GUI hands it the net size
+        win_rgb = resize.resize_u8_half_pixel(m._to_dev(im), (WIN, WIN))
+        window = (P.rgb_to_lab_dev_u8(win_rgb)[..., :1].contiguous(),
+                  m._to_dev(resize.cubic_resize_matrix_np(S, WIN)),
+                  m._to_dev(resize.cubic_resize_matrix_np(S, WIN)))
+        out, click_s = {}, []
+        if d.predict_dist_table(*tables[0]) != 0:
+            die("dist session: predict_dist_table failed")
+        out["map"] = d._dev_dist.cpu().numpy()
+        out["net0"] = m.net_forward_table(*tables[0])
+        for i in range(1, n_clicks + 1):
+            h, w = clicks[i - 1]["y"], clicks[i - 1]["x"]
+            prev = m.output_rgb[h, w].copy()
+            t0 = time.perf_counter()
+            res = m.net_forward_table_win_suggest(
+                *tables[i], *window, d, h, w, K=SUGGEST_K)
+            click_s.append(time.perf_counter() - t0)
+            if isinstance(res, int):
+                die(f"dist session: click+suggest click {i} returned {res}")
+            out[f"win{i}"], out[f"colors{i}"] = res
+            out[f"net{i}"] = m.output_rgb
+            # CUDA's division by a host scalar multiplies by its
+            # reciprocal, so row 0 is the pixel / 255 to 1 ulp, not bitwise
+            if (np.abs(res[1][0] - prev.astype(np.float32) / 255).max()
+                    > 1e-6 or not np.array_equal(np.rint(res[1][0] * 255),
+                                                 prev)):
+                die(f"dist session: click {i}: palette row 0 {res[1][0]} is "
+                    f"not the previous frame's pixel {prev}")
+        # the last window frame again, by K2's plain version on the
+        # session's own tensors (no launch)
+        z = resize.zoom_with_matrices(m._dev_output_ab, window[1], window[2])
+        out["win_plain"] = k2.lab_to_rgb_u8_plain(
+            window[0][..., 0], z[..., 0], z[..., 1]).cpu().numpy()
+        h, w = clicks[n_clicks - 1]["y"], clicks[n_clicks - 1]["x"]
+        out["reccs"] = d.get_ab_reccs(h, w, K=SUGGEST_K, return_conf=True)
+        out["palette"] = d.suggest_table(*tables[n_clicks], h, w,
+                                         K=SUGGEST_K)
+        out["map_suggest"] = d._dev_dist.cpu().numpy()
+        d.compute_entropy()
+        out["entropy"] = d.dist_entropy
+        out["snap"] = np.stack([
+            lab_gamut.snap_ab(l_in, c, device=device)
+            for l_in in (20.0, 50.0, 80.0) for c in snap_colors])
+        return m, d, window, out, click_s
+
+    for k in entries:
+        k.launches = 0
+    t0 = time.perf_counter()
+    dm, dd, window, dgpu, dclick_s = dist_session(None, len(clicks))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dist_launches = {k.name: k.launches for k in entries}
+    print(f"dist session on the card: {wall:.2f} s, launches {dist_launches}")
+    for name, n in dist_launches.items():
+        if n == 0:
+            die(f"kernel {name} was not launched on the dist session")
+
+    for key in ("map", "map_suggest"):
+        dmap = dgpu[key]
+        if dmap.shape != (S // 4, S // 4, 529) or not np.isfinite(dmap).all():
+            die(f"dist session: {key} is {dmap.shape}, or not finite")
+        if np.abs(dmap.sum(-1) - 1).max() > 1e-4:
+            die(f"dist session: {key}'s rows sum to 1 within "
+                f"{np.abs(dmap.sum(-1) - 1).max():.2e} only")
+    win_lsb, win_share = lsb(torch.from_numpy(dgpu[f"win{len(clicks)}"]),
+                             torch.from_numpy(dgpu["win_plain"]))
+    if win_lsb > K2_BAR[0] or win_share >= K2_BAR[1]:
+        die(f"dist session: the last window frame is {win_lsb} LSB on "
+            f"{win_share:.2e} of the values from K2's plain version on the "
+            f"same tensors")
+    rerun_share = 0.0
+    for i in range(1, len(clicks) + 1):
+        win, colors = dgpu[f"win{i}"], dgpu[f"colors{i}"]
+        if win.shape != (WIN, WIN, 3) or win.dtype != np.uint8:
+            die(f"dist session: window frame {i} is {win.shape} {win.dtype}")
+        if (colors.shape != (SUGGEST_K + 1, 3) or colors.min() < 0
+                or colors.max() > 1 or not np.isfinite(colors).all()):
+            die(f"dist session: colors {i} are {colors.shape}, outside "
+                f"[0,1] or not finite")
+        # launched after the counts were read: comparisons, not the path.
+        # cuDNN's default transposed-conv kernels accumulate with atomics,
+        # so two forwards of one input differ in the last bits of ab and a
+        # few bytes of the frame; the session's frame is held to the frame
+        # bound, and byte for byte with the deterministic kernels chosen
+        want = dm.net_forward_table(*tables[i])
+        d = np.abs(want.astype(int) - dgpu[f"net{i}"].astype(int)).max(-1)
+        rerun_share = max(rerun_share, float(np.mean(d != 0)))
+        if d.max() > FRAME_BOUND_LSB or np.mean(d != 0) >= FRAME_BOUND_SHARE:
+            die(f"dist session: click {i}'s net frame is {d.max()} LSB on "
+                f"{np.mean(d != 0):.2e} of the pixels from "
+                f"net_forward_table's for the same table")
+        torch.backends.cudnn.deterministic = True
+        try:
+            want = dm.net_forward_table(*tables[i])
+            h, w = clicks[i - 1]["y"], clicks[i - 1]["x"]
+            if isinstance(dm.net_forward_table_win_suggest(
+                    *tables[i], *window, dd, h, w, K=SUGGEST_K), int):
+                die(f"dist session: click+suggest click {i} failed on rerun")
+            if not np.array_equal(dm.output_rgb, want):
+                die(f"dist session: click {i}'s net frame is not "
+                    f"net_forward_table's for the same table "
+                    f"(deterministic convolutions)")
+        finally:
+            torch.backends.cudnn.deterministic = False
+    centers, conf = dgpu["reccs"]
+    colors_u8, pal_conf = dgpu["palette"]
+    if colors_u8.shape != (SUGGEST_K, 3) or colors_u8.dtype != np.uint8:
+        die(f"suggest_table: colors are {colors_u8.shape} {colors_u8.dtype}")
+    for name, c in (("get_ab_reccs", conf), ("suggest_table", pal_conf)):
+        if (c.shape != (SUGGEST_K,) or abs(float(c.sum()) - 1) > 1e-5
+                or (np.diff(c) > 0).any()):
+            die(f"{name}: confidences {c} do not sum to 1 within 1e-5, or "
+                f"are not sorted")
+    if centers.shape != (SUGGEST_K, 2) or np.abs(centers).max() > 110:
+        die(f"get_ab_reccs: centers {centers.shape} leave [-110, 110]")
+    if not np.isfinite(dgpu["entropy"]).all() or \
+            dgpu["entropy"].shape != (S, S) or (dgpu["entropy"] > 0).any():
+        die("compute_entropy: not finite, not (Xd, Xd) or positive")
+    print(f"dist session checks: map ({S // 4},{S // 4},529) finite, rows "
+          f"sum to 1 within {np.abs(dgpu['map'].sum(-1) - 1).max():.2e}; "
+          f"{len(clicks)} net frames byte-identical to net_forward_table's "
+          f"with deterministic convolutions, and within 1 LSB on at most "
+          f"{rerun_share:.2e} of the pixels with cuDNN's default ones; "
+          f"the last window frame {win_lsb} LSB on {win_share:.2e} of the "
+          f"values from K2's plain version on the same tensors; "
+          f"palette row 0 the previous pixel; confidences sorted, sum "
+          f"{float(conf.sum()):.7f}; centers within "
+          f"{np.abs(centers).max():.1f}; top confidence {conf[0]:.3f}")
+
+    # timings, for information: the click+suggest click with the last table
+    h, w = clicks[-1]["y"], clicks[-1]["x"]
+    sug_click = lambda: dm.net_forward_table_win_suggest(  # noqa: E731
+        *tables[-1], *window, dd, h, w, K=SUGGEST_K)
+
+    def host_ms(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.array(out)
+
+    # how far two forwards of one table lie apart with cuDNN's default
+    # kernels (the deterministic ones must not differ at all)
+    dm.net_forward_table(*tables[-1])
+    net_in = (dm._dev_l_mc.permute(2, 0, 1)[None],
+              dm._to_dev(dm.input_ab)[None], dm._to_dev(dm.input_mask)[None])
+    spread = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        try:
+            with torch.no_grad():
+                outs = [dm._fwd_tbl(*net_in) for _ in range(20)]
+            spread[det] = max(float((o - outs[0]).abs().max())
+                              for o in outs[1:])
+        finally:
+            torch.backends.cudnn.deterministic = False
+    if spread[True] != 0:
+        die(f"the deterministic forward differs run to run: {spread[True]}")
+    print(f"20 forwards of one table: max |d ab| {spread[False]:.3e} with "
+          f"cuDNN's default kernels, {spread[True]:.1e} with the "
+          f"deterministic ones")
+    ms = np.concatenate([np.array(dclick_s[1:]) * 1e3, host_ms(sug_click, 40)])
+    print(f"click+suggest click on the card (host clock, window frame and "
+          f"palette read back): p50 {np.percentile(ms, 50):.3f} ms, p95 "
+          f"{np.percentile(ms, 95):.3f} ms over {len(ms)} clicks")
+    for name, fn in (
+            ("predict_dist_table",
+             lambda: dd.predict_dist_table(*tables[-1])),
+            ("suggest_table (K=9)",
+             lambda: dd.suggest_table(*tables[-1], h, w, K=SUGGEST_K))):
+        fn()
+        ms = host_ms(fn, 20)
+        print(f"{name} on the card (host clock): p50 "
+              f"{np.percentile(ms, 50):.3f} ms, p95 "
+              f"{np.percentile(ms, 95):.3f} ms over {len(ms)} calls")
+    events, per_click, wall_ms = device_profile(sug_click, 5)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    copies = sum(e.count for e in events) / 5 - per_click
+    print(f"profile of 5 click+suggest clicks: wall {wall_ms:.3f} ms, device"
+          f" busy {busy_ms:.3f} ms (share {busy_ms / wall_ms:.3f}); "
+          f"{per_click:.0f} device kernels and {copies:.0f} copies per click")
+    for e in events[:8]:
+        print(f"  {e.self_device_time_total / 5:10.1f} us/click "
+              f"{e.count // 5:4d}x  {e.key[:100]}")
+    chain = lambda: P.suggest_at(  # noqa: E731
+        dd._dev_dist, h // 4, w // 4, dd._dev_pts(), dd._generator,
+        K=SUGGEST_K)
+    events, chain_kernels, wall_ms = device_profile(chain, 5)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def chain_synced():
+        chain()
+        torch.cuda.synchronize()
+
+    ms = host_ms(chain_synced, 20)
+    print(f"the k-means chain alone (suggest_at, K={SUGGEST_K}, N=25000, 4 "
+          f"restarts x 30 Lloyd steps): {chain_kernels:.0f} device kernels, "
+          f"device busy {busy_ms / 5:.3f} ms per call (wall "
+          f"{wall_ms / 5:.3f} ms under the profiler); host clock without "
+          f"it, synchronized: p50 {np.percentile(ms, 50):.3f} ms, p95 "
+          f"{np.percentile(ms, 95):.3f} ms over {len(ms)} calls")
+
+    # card against the CPU twin
+    t0 = time.perf_counter()
+    _, cd, _, dcpu, _ = dist_session("cpu", DIST_CPU_CLICKS)
+    print(f"the dist session's CPU twin ({DIST_CPU_CLICKS} click+suggest "
+          f"clicks): {time.perf_counter() - t0:.1f} s")
+    map_err = float(np.abs(dgpu["map"] - dcpu["map"]).max())
+    if not map_err <= MAP_BOUND:
+        die(f"distribution map: card vs CPU {map_err} (bound {MAP_BOUND})")
+    worst_frame, worst_share = 0, 0.0
+    for i in range(DIST_CPU_CLICKS + 1):
+        for key in (f"win{i}", f"net{i}"):
+            if key not in dcpu:
+                continue
+            d = np.abs(dgpu[key].astype(int) - dcpu[key].astype(int)).max(-1)
+            worst_frame = max(worst_frame, int(d.max()))
+            worst_share = max(worst_share, float(np.mean(d != 0)))
+            if d.max() > FRAME_BOUND_LSB or \
+                    np.mean(d != 0) >= FRAME_BOUND_SHARE:
+                die(f"dist session {key}: card vs CPU {d.max()} LSB on "
+                    f"{np.mean(d != 0):.2e} of the pixels")
+    # the CPU twin's last map saw fewer hints: compare entropy of the first
+    ent_gpu = P.dist_entropy(torch.from_numpy(dgpu["map"]).to(dev)).cpu()
+    ent_err = float((ent_gpu - P.dist_entropy(
+        torch.from_numpy(dcpu["map"]))).abs().max())
+    if not ent_err <= 1e-3:
+        die(f"dist_entropy: card vs CPU {ent_err}")
+    snap_d = np.abs(dgpu["snap"].astype(int) - dcpu["snap"].astype(int))
+    if snap_d.max() > 1:
+        die(f"snap_ab: card vs CPU {snap_d.max()} LSB")
+    # the chain's deterministic cores on shared random numbers
+    pdf = torch.from_numpy(dcpu["map"][h // 4, w // 4])
+    pts = cd._dev_pts()
+    gen = torch.Generator().manual_seed(3)
+    u = torch.rand(25000, generator=gen)
+    counts = km.bins_from_uniform(pdf, u)
+    counts_gpu = km.bins_from_uniform(pdf.to(dev), u.to(dev)).cpu()
+    moved = int((counts - counts_gpu).abs().sum()) // 2
+    if counts_gpu.sum() != 25000 or moved > BINS_MOVED_BOUND:
+        die(f"bins_from_uniform: card vs CPU {moved} samples in another bin")
+    c0 = km.seeds_from_uniform(pts, counts.float(),
+                               torch.rand((4, SUGGEST_K), generator=gen))
+    want = km._lloyd(pts, counts.float(), c0, SUGGEST_K, 30)
+    got = km._lloyd(pts.to(dev), counts.float().to(dev), c0.to(dev),
+                    SUGGEST_K, 30)
+    lloyd_err = float((got[0].cpu() - want[0]).abs().max())
+    if not lloyd_err <= 1e-3 or not torch.allclose(
+            got[2].cpu(), want[2], rtol=1e-4):
+        die(f"_lloyd: card vs CPU centers {lloyd_err}, inertia "
+            f"{got[2].cpu().tolist()} vs {want[2].tolist()}")
+    print(f"card vs CPU dist session: map within {map_err:.2e} (bound "
+          f"{MAP_BOUND}); frames within {worst_frame} LSB on at most "
+          f"{worst_share:.2e} of a frame's pixels; entropy within "
+          f"{ent_err:.2e}; snap_ab: {int((snap_d != 0).sum())} of "
+          f"{snap_d.size} values 1 LSB off; bins_from_uniform: {moved} of "
+          f"25000 samples in another bin (bound {BINS_MOVED_BOUND}); _lloyd "
+          f"centers within {lloyd_err:.2e}")
+
+    # 7. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
             "name": k.name, "route": "cuda",
             "source": f"ideepcolor_tpu_torch/csrc/{k.source}",
-            "replaces": k.replaces, "launches": launches[k.name],
+            "replaces": k.replaces,
+            "launches": launches[k.name] + dist_launches[k.name],
+            "launches_main_path": launches[k.name],
+            "launches_dist_session": dist_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 7.
+    # 8.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,11 +4,19 @@ A package of its own beside the JAX package, which stays the reference it is
 held against. It imports torch and numpy, never jax, and nothing of
 ``ideepcolor_tpu``. Module layout mirrors the JAX package:
 
-  api/       ColorizeImageTorch (the ColorizeImageBase contract)
-  engine/    the click and full-res programs
-  models/    the SIGGRAPH U-Net as an nn.Module + weight conversion
-  ops/       colorspace, hints, resize; ops/cuda holds the hand-written
-             kernels (sources in csrc/), counterparts of ops/pallas
+  api/       ColorizeImageTorch and ColorizeImageTorchDist (the
+             ColorizeImageBase contract)
+  data/      the ab bin tables; the host-facing gamut helpers (no Qt)
+  engine/    the click, window, suggestion and full-res programs
+  models/    the SIGGRAPH U-Net as an nn.Module, regression and
+             distribution heads, + weight conversion
+  ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
+             holds the hand-written kernels (sources in csrc/),
+             counterparts of ops/pallas
+
+Not ported yet: bf16 serving, the ``abq`` and ``*_host`` click variants with
+the packed-row click+suggest program (they wait for the native host ops),
+the Caffe family, batch and streaming engines, training and the apps.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

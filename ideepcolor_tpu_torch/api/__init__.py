@@ -1,5 +1,7 @@
 """ColorizeImageBase-compatible API of the port."""
 
-from .colorize import ColorizeImageBase, ColorizeImageTorch
+from .colorize import (ColorizeImageBase, ColorizeImageTorch,
+                       ColorizeImageTorchDist)
 
-__all__ = ["ColorizeImageBase", "ColorizeImageTorch"]
+__all__ = ["ColorizeImageBase", "ColorizeImageTorch",
+           "ColorizeImageTorchDist"]

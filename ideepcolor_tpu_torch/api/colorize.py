@@ -1,18 +1,20 @@
 """ColorizeImageBase-compatible API over the PyTorch/CUDA engine.
 
-Counterpart of ``ideepcolor_tpu/api/colorize.py`` (``ColorizeImageBase``
-and ``ColorizeImageJax``), exported as :class:`ColorizeImageTorch`, the
-reference's own name for this backend. Same public contract: numpy
+Counterpart of ``ideepcolor_tpu/api/colorize.py``: ``ColorizeImageBase``,
+``ColorizeImageJax`` as :class:`ColorizeImageTorch` and
+``ColorizeImageJaxDist`` as :class:`ColorizeImageTorchDist`, the
+reference's own names for these backends. Same public contract: numpy
 channel-first arrays in, uint8 (H, W, 3) frames out, the same method names,
 state fields, -1 sentinels and shape checks.
 
 Behind it, the image state lives on ``device`` (the card unless the caller
 passes ``device="cpu"``), and every frame is composed by kernel K2; the
-table click rasterizes its hints with kernel K1.
+table programs rasterize their hints with kernel K1.
 
-Not ported yet: the dist head and suggestions, bf16 serving, the ``abq``,
-``win``, ``suggest`` and ``host`` click variants, the ``*_async`` getters
-and the Caffe backends.
+Not ported yet: bf16 serving, the ``abq`` and ``*_host`` click variants
+(with the packed-row click+suggest program; they wait for the native host
+ops), ``net_forward_fullres``, the ``*_async`` getters and the Caffe
+backends.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from ..models.siggraph import (SIGGRAPHGenerator, init_state_dict,
                                load_state_dict_file)
 from ..ops import colorspace as cs
 from ..ops.cuda import colorspace_kernel as k2
+from ..ops.cuda import hints_kernel as k1
+from ..ops.quantize import make_pts_grid
 from ..ops.resize import (linear_resize_matrix_np, nearest_resize_matrix_np,
                           resize_u8_half_pixel, zoom_with_matrices)
 
@@ -45,6 +49,14 @@ def rgb2lab_transpose(img_rgb, device=None) -> np.ndarray:
     t = torch.as_tensor(np.ascontiguousarray(img),
                         device=resolve_device(device))
     return _to_lab(t).permute(2, 0, 1).cpu().numpy()
+
+
+def lab2rgb_transpose(img_l, img_ab, device=None) -> np.ndarray:
+    """(1,H,W) L + (2,H,W) ab -> (H,W,3) uint8, composed by K2."""
+    dev = resolve_device(device)
+    l = torch.as_tensor(np.asarray(img_l, np.float32), device=dev)
+    ab = torch.as_tensor(np.asarray(img_ab, np.float32), device=dev)
+    return k2.lab_to_rgb_u8_hwc(l[0], ab[0], ab[1]).cpu().numpy()
 
 
 class ColorizeImageBase:
@@ -67,8 +79,37 @@ class ColorizeImageBase:
         self._fullres_hw = None
 
     def _to_dev(self, arr, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
-                               device=self.device)
+        """A numpy array (copied up) or a tensor (moved if it lies
+        elsewhere) on ``self.device``."""
+        if not isinstance(arr, torch.Tensor):
+            arr = np.ascontiguousarray(arr)
+        return torch.as_tensor(arr, dtype=dtype, device=self.device)
+
+    def _dev_pts(self) -> torch.Tensor:
+        """The ``pts_in_hull`` grid of the suggestion programs, made on the
+        device once (it never changes after construction)."""
+        p = getattr(self, "_dev_pts_in_hull", None)
+        if p is None:
+            p = self._dev_pts_in_hull = self._to_dev(self.pts_in_hull,
+                                                     torch.float32)
+        return p
+
+    # ``output_rgb`` is read back lazily: a click assigns the device tensor,
+    # which stays for the next suggest click's current-color row, and the
+    # numpy frame is made on the first read (the window clicks, which
+    # return the window frame, never read it).
+    @property
+    def output_rgb(self):
+        if self._output_rgb_np is None and self._dev_output_rgb is not None:
+            self._output_rgb_np = self._dev_output_rgb.cpu().numpy()
+        return self._output_rgb_np
+
+    @output_rgb.setter
+    def output_rgb(self, value):
+        if isinstance(value, torch.Tensor):
+            self._dev_output_rgb, self._output_rgb_np = value, None
+        else:
+            self._dev_output_rgb, self._output_rgb_np = None, value
 
     def _frame(self, l: torch.Tensor, a: torch.Tensor, b: torch.Tensor
                ) -> np.ndarray:
@@ -156,18 +197,89 @@ class ColorizeImageBase:
         click = getattr(self, "_click_tbl", None)
         if click is None:
             return -1
-        rgb, out_ab, hints = click(
-            self._dev_l_net, self._dev_l_mc,
-            self._to_dev(np.asarray(boxes, np.int32)),
-            self._to_dev(np.asarray(values, np.float32)), int(count))
+        rgb, out_ab, hints = click(self._dev_l_net, self._dev_l_mc,
+                                   *self._dev_table(boxes, values, count))
+        if self._set_click_outputs(rgb, out_ab, hints) == -1:
+            return -1
+        return self.output_rgb
+
+    def _dev_table(self, boxes, values, count):
+        return (self._to_dev(np.asarray(boxes, np.int32)),
+                self._to_dev(np.asarray(values, np.float32)), int(count))
+
+    def _set_hint_mirrors(self, hints: torch.Tensor):
+        """K1's planar (ab, mask) output, read back once, becomes the numpy
+        hint mirrors (``input_ab``, ``input_mask`` and their normalized
+        forms). -1 on the sentinel failures."""
         hints_np = hints.cpu().numpy()
-        if ColorizeImageBase.net_forward(self, hints_np[:2],
-                                         hints_np[2:]) == -1:
+        return ColorizeImageBase.net_forward(self, hints_np[:2], hints_np[2:])
+
+    def _set_click_outputs(self, rgb, out_ab, hints):
+        if self._set_hint_mirrors(hints) == -1:
             return -1
         self._dev_output_ab = out_ab
-        self.output_rgb = rgb.cpu().numpy()
+        self.output_rgb = rgb              # stays on the device; lazy numpy
         self._set_out_ab_()
-        return self.output_rgb
+        return 0
+
+    def net_forward_table_win(self, boxes, values, count, l_win_pad, rh, rw):
+        """Table click that returns the window-size display frame.
+
+        l_win_pad (Hw, Ww, 1): the window's L plane; rh (Hw, Xd) / rw (Ww,
+        Xd): interpolation matrices; tensors on the device, or numpy. The
+        net-size frame stays on the device in ``output_rgb`` (read back on
+        first use); only the window frame is read back here."""
+        if not self.img_l_set or not self.net_set:
+            return -1
+        click = getattr(self, "_click_tbl_win", None)
+        if click is None:
+            return -1
+        rgb, out_ab, win, hints = click(
+            self._dev_l_net, self._dev_l_mc,
+            *self._dev_window(l_win_pad, rh, rw),
+            *self._dev_table(boxes, values, count))
+        if self._set_click_outputs(rgb, out_ab, hints) == -1:
+            return -1
+        return win.cpu().numpy()
+
+    def _dev_window(self, l_win_pad, rh, rw):
+        return (self._to_dev(l_win_pad, torch.float32),
+                self._to_dev(rh, torch.float32),
+                self._to_dev(rw, torch.float32))
+
+    def net_forward_table_win_suggest(self, boxes, values, count,
+                                      l_win_pad, rh, rw, dist_model,
+                                      h, w, K=9, N=25000):
+        """Dist-session GUI click: the window frame AND the (K+1, 3)
+        suggestion palette for the click pixel (h, w).
+
+        The per-image distribution map of ``dist_model`` (on the device
+        since its last predict) feeds the CMF-sample + k-means + Lab->RGB
+        palette chain behind the same forward; its random numbers come from
+        ``dist_model``'s generator. Returns (win, colors), or -1 when the
+        path is not available: no table program, no dist map yet, or no
+        previous frame for the palette's current-color row."""
+        if not self.img_l_set or not self.net_set:
+            return -1
+        click = getattr(self, "_click_tbl_win_suggest", None)
+        dist_dev = getattr(dist_model, "_dev_dist", None)
+        if click is None or dist_dev is None:
+            return -1
+        prev = self._dev_output_rgb
+        if prev is None:
+            if self._output_rgb_np is None:
+                return -1
+            prev = self._to_dev(self._output_rgb_np)
+        rgb, out_ab, win, colors, hints = click(
+            self._dev_l_net, self._dev_l_mc,
+            *self._dev_window(l_win_pad, rh, rw),
+            *self._dev_table(boxes, values, count),
+            dist_dev, int(h), int(w), dist_model._dev_pts(), prev,
+            dist_model._generator, K=K, N=N,
+            map_div=dist_model.dist_map_div)
+        if self._set_click_outputs(rgb, out_ab, hints) == -1:
+            return -1
+        return win.cpu().numpy(), colors.cpu().numpy()
 
     # ----- quality probe -----
     def get_result_PSNR(self, result=-1, return_SE_map=False):
@@ -324,34 +436,202 @@ class ColorizeImageTorch(ColorizeImageBase):
         self.ab_mean = 0.
         self.mask_mult = 1.
         self.mask_cent = .5 if maskcent else 0
+        self.pts_in_hull = make_pts_grid()               # 529x2 full grid
 
-    def prep_net(self, gpu_id=None, path='', width=1.0):
+    def prep_net(self, gpu_id=None, path='', dist=False, width=1.0):
         """Load the weights at ``path`` (``.npz`` in the JAX package's HWIO
         layout or in torch's, or a ``.pth`` state dict); without a path,
         seeded random weights at ``width``. ``gpu_id`` is accepted for the
-        reference's signature; the device was chosen at construction."""
+        reference's signature; the device was chosen at construction. With
+        ``dist=True`` ``net_forward`` runs the distribution head and the
+        model has no click programs."""
         sd = load_state_dict_file(path) if path else init_state_dict(width)
         self.net = SIGGRAPHGenerator.from_state_dict(sd).to(
             self.device).requires_grad_(False)
-        mc = self.mask_cent
+        self.dist = dist
+        if not dist:
+            mc = self.mask_cent
 
-        def fwd(A, B, M):
-            # torch conventions: ab_mean=0, ab_norm=1, mask_mult=1 -> the
-            # raw table values feed the net directly
-            return self.net(A, B, M, mc)
+            def fwd(A, B, M):
+                # torch conventions: ab_mean=0, ab_norm=1, mask_mult=1 ->
+                # the raw table values feed the net directly
+                return self.net(A, B, M, mc)
 
-        self._click = P.make_click_program(fwd)
-        self._click_tbl = P.make_table_click_program(fwd, self.Xd)
+            self._fwd_tbl = fwd
+            self._click = P.make_click_program(fwd)
+            self._click_tbl = P.make_table_click_program(fwd, self.Xd)
+            self._click_tbl_win = P.make_table_click_win_program(fwd, self.Xd)
+            self._click_tbl_win_suggest = \
+                P.make_table_click_win_suggest_program(fwd, self.Xd)
         self.net_set = True
+
+    def _dist_forward(self, l_mc, ab, mask):
+        """l_mc (Xd,Xd,1), ab (2,Xd,Xd), mask (1,Xd,Xd) -> (reg2 (2,Xd,Xd),
+        the double-110 regression; the (Xd/4, Xd/4, 529) distribution map,
+        bins last so a pixel's pdf is contiguous)."""
+        with torch.no_grad():
+            reg2, dist_cl = self.net(l_mc.permute(2, 0, 1)[None], ab[None],
+                                     mask[None], self.mask_cent, dist=True,
+                                     dist_lowres=True)
+        return reg2[0], dist_cl[0].permute(1, 2, 0).contiguous()
 
     def net_forward(self, input_ab, input_mask):
         if super().net_forward(input_ab, input_mask) == -1:
             return -1
+        ab = self._to_dev(self.input_ab_mc, torch.float32)
+        mask = self._to_dev(self.input_mask_mult, torch.float32)
+        if self.dist:
+            # The reference's dist backend returns the raw (double-110)
+            # regression array and composes no frame. The map stays at
+            # Xd/4 on the device (a nearest-x4 lookup is an index mapping).
+            reg2, self._dev_dist = self._dist_forward(self._dev_l_mc, ab,
+                                                      mask)
+            return reg2.cpu().numpy()
         rgb, out_ab = self._click(
             self._dev_l_net, self._dev_l_mc.permute(2, 0, 1)[None],
-            self._to_dev(self.input_ab_mc, torch.float32)[None],
-            self._to_dev(self.input_mask_mult, torch.float32)[None])
+            ab[None], mask[None])
         self._dev_output_ab = out_ab
-        self.output_rgb = rgb.cpu().numpy()
+        self.output_rgb = rgb
         self._set_out_ab_()
         return self.output_rgb
+
+
+class ColorizeImageTorchDist(ColorizeImageTorch):
+    """SIGGRAPH backend with the 529-bin distribution head and the color
+    suggestions. Each model owns a ``torch.Generator`` seeded 0 on its
+    device, where the JAX class owns a key."""
+
+    dist_map_div = 4      # the device map is kept at Xd/4 (nearest-x4)
+
+    # Bounds for the suggestion parameters a client may set.
+    MAX_SUGGEST_K = 25
+    MAX_SUGGEST_N = 100_000
+
+    def __init__(self, Xd=256, maskcent=False, device=None):
+        super().__init__(Xd, maskcent, device=device)
+        self.dist_ab_set = False
+        self.pts_grid = make_pts_grid()
+        self.in_hull = np.ones(529, dtype=bool)
+        self.AB = 529
+        self.A = self.B = 23
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        self._dev_dist = None
+        self._dist_np = None
+
+    def prep_net(self, gpu_id=None, path='', dist=True, S=.2):
+        super().prep_net(gpu_id, path, dist=True)
+
+    def _dist_fwd_tbl(self, l_mc, ab, mask):
+        return self._dist_forward(l_mc, ab, mask)[1]
+
+    def _set_dist(self, dist_map):
+        self._dev_dist = dist_map
+        self.dist_ab_set = True
+        self._dist_np = None          # the numpy mirrors are lazy
+
+    def predict_dist_table(self, boxes, values, count):
+        """The per-image suggestion forward from a hint table: K1
+        rasterizes, the distribution map is set on the device, and only
+        K1's planes are read back (for the hint mirrors). The regression
+        output is discarded, as the reference's predict_color does."""
+        if not (self.img_l_set and self.net_set):
+            return -1
+        hints = k1.rasterize_hints_planar(
+            *self._dev_table(boxes, values, count), self.Xd)
+        if self._set_hint_mirrors(hints) == -1:
+            return -1
+        self._set_dist(self._dist_fwd_tbl(self._dev_l_mc, hints[:2],
+                                          hints[2:]))
+        return 0
+
+    def ensure_suggest_program(self, K=9, N=25000):
+        """The suggest program for a validated (K, N). Raises ValueError on
+        out-of-range values (a server maps it to HTTP 400).
+
+        The JAX class also keeps a bounded FIFO cache of these programs and
+        can compile one ahead of its first call, because each (K, N) is a
+        compile of the whole model there. Eager PyTorch compiles nothing,
+        so the port carries neither: the program is a closure."""
+        K, N = int(K), int(N)
+        if not 1 <= K <= self.MAX_SUGGEST_K:
+            raise ValueError(
+                f"k must be in [1, {self.MAX_SUGGEST_K}], got {K}")
+        if not 1000 <= N <= self.MAX_SUGGEST_N:
+            raise ValueError(
+                f"N must be in [1000, {self.MAX_SUGGEST_N}], got {N}")
+        return P.make_table_suggest_program(
+            self._dist_fwd_tbl, self.Xd, K=K, N=N, map_div=self.dist_map_div)
+
+    def suggest_table(self, boxes, values, count, h, w, K=9, N=25000):
+        """Serving suggest: hint-table dist forward + CMF sampling +
+        k-means + uint8 palette at pixel (h, w).
+
+        Returns ``(colors_u8 (K,3), conf (K,))``. The distribution map
+        stays on the device for later ``get_ab_reccs`` /
+        ``compute_entropy``. -1 on unset image or net."""
+        if not (self.img_l_set and self.net_set):
+            return -1
+        prog = self.ensure_suggest_program(K, N)
+        dist_map, colors, conf, hints = prog(
+            self._dev_l_net, self._dev_l_mc,
+            *self._dev_table(boxes, values, count), int(h), int(w),
+            self._dev_pts(), self._generator)
+        if self._set_hint_mirrors(hints) == -1:
+            return -1
+        self._set_dist(dist_map)
+        return colors.cpu().numpy(), conf.cpu().numpy()
+
+    def net_forward(self, input_ab, input_mask):
+        out = super().net_forward(input_ab, input_mask)
+        if np.isscalar(out) and out == -1:   # precondition failure only:
+            return -1                        # never test the float output
+        self.dist_ab_set = True
+        self._dist_np = None
+        return out
+
+    @property
+    def dist_ab(self):
+        """(529, Xd, Xd): the reference's x4-nearest-upsampled view of the
+        map, made on first read (139 MB at Xd=256)."""
+        if self._dist_np is None:
+            lo = self._dev_dist.permute(2, 0, 1).cpu().numpy()
+            self._dist_np = lo.repeat(4, axis=1).repeat(4, axis=2)
+        return self._dist_np
+
+    @property
+    def dist_ab_full(self):
+        return self.dist_ab
+
+    @property
+    def dist_ab_grid(self):
+        return self.dist_ab_full.reshape((self.A, self.B, self.Xd, self.Xd))
+
+    def get_ab_reccs(self, h, w, K=5, N=25000, return_conf=False):
+        if not self.dist_ab_set:
+            print('Need to set prediction first')
+            return 0
+        # the device map is at Xd/4; nearest-x4 lookup == (h//4, w//4)
+        centers, conf = P.suggest_at(self._dev_dist, int(h) // 4,
+                                     int(w) // 4, self._dev_pts(),
+                                     self._generator, K=K, N=N)
+        centers, conf = centers.cpu().numpy(), conf.cpu().numpy()
+        return (centers, conf) if return_conf else centers
+
+    def compute_entropy(self):
+        lo = P.dist_entropy(self._dev_dist).cpu().numpy()
+        self.dist_entropy = lo.repeat(4, axis=0).repeat(4, axis=1)
+
+    def plot_dist_grid(self, h, w):
+        import matplotlib.pyplot as plt
+        plt.figure()
+        plt.imshow(self.dist_ab_grid[:, :, h, w],
+                   extent=[-110, 110, 110, -110], interpolation='nearest')
+        plt.colorbar()
+        plt.ylabel('a')
+        plt.xlabel('b')
+
+    def plot_dist_entropy(self):
+        import matplotlib.pyplot as plt
+        plt.figure()
+        plt.imshow(-self.dist_entropy, interpolation='nearest')
+        plt.colorbar()

@@ -1,11 +1,13 @@
-"""The click and full-res programs of the main path, on tensors.
+"""The click, suggestion and full-res programs, on tensors.
 
 Counterpart of ``ideepcolor_tpu/engine/pipeline.py``. There each stage
 chain is one jitted XLA program; PyTorch runs eagerly, so here each is a
 plain function whose fused steps are the hand-written kernels: K1 (hint
 rasterizer) at the head of the table click and K2 (Lab -> uint8 compose)
 at every frame. The clicks take K2's fused entry, which also returns the
-requantized ab, the click's second output.
+requantized ab, the click's second output; the window frame and the uint8
+suggestion palette take K2's compose. The suggestion chain between them
+(``ops.kmeans``) is torch ops, as it is ``jnp`` ops in the JAX package.
 
 The JAX package pads full-res planes to 256-px buckets so one compiled
 program serves many image sizes; eager PyTorch compiles nothing, so the
@@ -18,6 +20,8 @@ from __future__ import annotations
 import torch
 
 from ..ops import colorspace as cs
+from ..ops import kmeans as km
+from ..ops import quantize
 from ..ops.cuda import colorspace_kernel as k2
 from ..ops.cuda import hints_kernel as k1
 from ..ops.resize import zoom_with_matrices
@@ -92,6 +96,108 @@ def make_table_click_program(apply_fn, size: int):
         return rgb, out_ab, hints
 
     return click
+
+
+def make_table_click_win_program(apply_fn, size: int):
+    """The table click that also composes the GUI's window-size frame:
+    the requantized output ab resized by the matrices rh (Hw, size) / rw
+    (Ww, size) (``ops.resize.cubic_resize_matrix_np`` for the GUI), fused
+    with the window's (Hw, Ww, 1) L plane by K2's compose.
+
+    ``click(l_net, l_mc, l_win, rh, rw, boxes, values, count)`` gives
+    ``(rgb, out_ab, win (Hw,Ww,3) uint8, hints)``; the first two and the
+    last are the table click's own."""
+    table_click = make_table_click_program(apply_fn, size)
+
+    @torch.no_grad()
+    def click(l_net, l_mc, l_win, rh, rw, boxes, values, count):
+        rgb, out_ab, hints = table_click(l_net, l_mc, boxes, values, count)
+        win = compose_rgb_u8(l_win, zoom_with_matrices(out_ab, rh, rw))
+        return rgb, out_ab, win, hints
+
+    return click
+
+
+def suggest_at(dist_S: torch.Tensor, h: int, w: int,
+               centers_tbl: torch.Tensor, generator: torch.Generator,
+               K: int = 5, N: int = 25000):
+    """Color suggestions at pixel (h, w) of a (H,W,Q) distribution map:
+    the gather, CMF sampling and k-means run on the map's device and give
+    (K,2) centers and (K,) confidences there. h and w are Python ints, so
+    the lookup is a view and reads nothing back."""
+    return km.ab_recommendations(dist_S[h, w, :], centers_tbl, generator,
+                                 K=K, N=N)
+
+
+def dist_entropy(dist: torch.Tensor) -> torch.Tensor:
+    """Per-pixel sum p log p over the bin axis (last), in the reference's
+    sign convention."""
+    return quantize.entropy(dist, axis=-1)
+
+
+def _palette_lab(l_net: torch.Tensor, h: int, w: int,
+                 centers: torch.Tensor) -> torch.Tensor:
+    """(K,2) ab centers at the click pixel's own L -> (K,3) Lab."""
+    return torch.cat([l_net[h, w].expand(centers.shape[0], 1), centers], 1)
+
+
+def make_table_click_win_suggest_program(apply_fn, size: int):
+    """Dist-session GUI click: net frame, window frame and color
+    suggestions at the click pixel (h, w) of the per-image distribution map.
+
+    ``click(l_net, l_mc, l_win, rh, rw, boxes, values, count, dist_map, h,
+    w, centers_tbl, prev_rgb, generator, K=9, N=25000, map_div=1)`` gives
+    ``(rgb, out_ab, win, colors, hints)``. colors is the reference's
+    suggest_color contract: (K+1, 3) float in [0,1], row 0 the PREVIOUS
+    frame's pixel at the click, then the K suggestions at the pixel's L (the
+    plain ``lab_to_rgb`` chain, clipped: float colors, not a uint8 frame).
+    map_div is the map's coordinate divisor (4 for the SIGGRAPH H/4 map).
+    The JAX factory takes K, N and map_div because each is a compile there;
+    here they are arguments of the click, and one program serves them all."""
+    win_click = make_table_click_win_program(apply_fn, size)
+
+    @torch.no_grad()
+    def click(l_net, l_mc, l_win, rh, rw, boxes, values, count,
+              dist_map, h, w, centers_tbl, prev_rgb, generator,
+              K=9, N=25000, map_div=1):
+        rgb, out_ab, win, hints = win_click(l_net, l_mc, l_win, rh, rw,
+                                            boxes, values, count)
+        centers, _conf = suggest_at(dist_map, h // map_div, w // map_div,
+                                    centers_tbl, generator, K=K, N=N)
+        colors = cs.lab_to_rgb(_palette_lab(l_net, h, w, centers)
+                               ).clamp(0.0, 1.0)
+        cur = prev_rgb[h, w].to(torch.float32) / 255.0
+        return rgb, out_ab, win, torch.cat([cur[None], colors], 0), hints
+
+    return click
+
+
+def make_table_suggest_program(dist_fwd, size: int, K: int = 9,
+                               N: int = 25000, map_div: int = 4):
+    """Serving suggest: hint table -> K1 -> dist forward -> CMF sampling ->
+    k-means -> uint8 palette through K2's compose.
+
+    ``dist_fwd(l_mc (S,S,1), ab (2,S,S), mask (1,S,S))`` gives the
+    (S/map_div, S/map_div, Q) distribution map. ``sugg(l_net, l_mc, boxes,
+    values, count, h, w, centers_tbl, generator)`` gives ``(dist_map,
+    colors (K,3) uint8, conf (K,), hints)``; the map is returned so the
+    caller keeps it for later lookups without another forward."""
+
+    @torch.no_grad()
+    def sugg(l_net, l_mc, boxes, values, count, h, w, centers_tbl,
+             generator):
+        hints = k1.rasterize_hints_planar(boxes, values, count, size)
+        dist_map = dist_fwd(l_mc, hints[:2], hints[2:])
+        centers, conf = suggest_at(dist_map, h // map_div, w // map_div,
+                                   centers_tbl, generator, K=K, N=N)
+        # the palette goes to K2 as a 1 x K image: as (K, 1) every pixel
+        # would be a row end and take the kernel's scalar path
+        lab = _palette_lab(l_net, h, w, centers)
+        colors = k2.lab_to_rgb_u8_hwc(lab[None, :, 0], lab[None, :, 1],
+                                      lab[None, :, 2])[0]
+        return dist_map, colors, conf, hints
+
+    return sugg
 
 
 def make_click_program(apply_fn):

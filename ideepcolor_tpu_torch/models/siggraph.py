@@ -1,10 +1,9 @@
 """SIGGRAPH user-guided colorization U-Net as an ``nn.Module`` (NCHW).
 
-Counterpart of ``ideepcolor_tpu/models/siggraph.py`` (``apply`` with
-``dist=False``), keyed like the reference's ``SIGGRAPHGenerator`` torch
-state dict, so the JAX package's checkpoints load with
-``load_state_dict(strict=True)`` after a pure relayout. Details carried over
-exactly:
+Counterpart of ``ideepcolor_tpu/models/siggraph.py`` (``apply``), keyed like
+the reference's ``SIGGRAPHGenerator`` torch state dict, so the JAX package's
+checkpoints load with ``load_state_dict(strict=True)`` after a pure
+relayout. Details carried over exactly:
 
 * input ``concat(L/100, ab/110, mask - maskcent)``, output ``tanh * 110``;
 * stride-2 steps are slices ``x[:, :, ::2, ::2]``, not strided convs;
@@ -13,9 +12,11 @@ exactly:
   ReLU -> conv -> LeakyReLU(0.2);
 * inference BatchNorm with eps 1e-5;
 * channel counts come from the weights, so width-scaled students load too;
-* ``model_class`` (the 529-bin distribution head's conv) is registered so
-  strict loading accepts the full checkpoint; the dist head itself is not
-  ported yet, and ``forward`` does not run it.
+* ``forward(dist=True)`` also runs the 529-bin distribution head on
+  conv8_3 (``model_class``, a 1x1 conv; softmax of its logits x 0.2) and
+  returns the regression output times 110 a SECOND time, the reference's
+  quirk in dist mode (callers ignore that value; it is reproduced for parity
+  of the public return).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.resize import upsample_nearest
 from . import layers as L
 
 # (block, conv indices within the torch Sequential, bn index or None), the
@@ -81,7 +83,7 @@ def _trunk(cin: int, cout: int, n: int, dilation: int = 1) -> nn.Sequential:
 
 
 class SIGGRAPHGenerator(nn.Module):
-    """The U-Net, regression head only. ``channels`` are the four tiers
+    """The U-Net with both heads. ``channels`` are the four tiers
     (c1, c2, c3, c4); :meth:`from_state_dict` reads them off the weights."""
 
     def __init__(self, channels: tuple[int, int, int, int] = FULL_CHANNELS):
@@ -122,9 +124,16 @@ class SIGGRAPHGenerator(nn.Module):
         return net.eval()
 
     def forward(self, input_A: torch.Tensor, input_B: torch.Tensor,
-                mask_B: torch.Tensor, maskcent: float = 0.0) -> torch.Tensor:
+                mask_B: torch.Tensor, maskcent: float = 0.0,
+                dist: bool = False, dist_lowres: bool = False):
         """input_A (N,1,H,W) L - 50; input_B (N,2,H,W) hint ab; mask_B
-        (N,1,H,W) hint mask -> (N,2,H,W) ab in [-110, 110]."""
+        (N,1,H,W) hint mask -> (N,2,H,W) ab in [-110, 110].
+
+        With ``dist=True`` returns ``(out_reg * 110, out_cl)``: out_cl
+        (N,529,H,W) softmax probabilities over the ab bins, the H/4 map
+        nearest-upsampled x4. A lookup on the upsampled map equals one at
+        (h // 4, w // 4) on the H/4 map, so ``dist_lowres=True`` keeps
+        (N,529,H/4,W/4) and saves 16x the memory."""
         x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
                       dim=1)
         conv1_2 = self.model1(x)
@@ -138,7 +147,13 @@ class SIGGRAPHGenerator(nn.Module):
                               + self.model2short9(conv2_2))
         conv10_2 = self.model10(self.model10up(conv9_3)
                                 + self.model1short10(conv1_2))
-        return torch.tanh(self.model_out(conv10_2)) * 110.0
+        out_reg = torch.tanh(self.model_out(conv10_2)) * 110.0
+        if not dist:
+            return out_reg
+        out_cl = torch.softmax(self.model_class(conv8_3) * 0.2, dim=1)
+        if not dist_lowres:
+            out_cl = upsample_nearest(out_cl, 4, h_axis=-2, w_axis=-1)
+        return out_reg * 110.0, out_cl
 
 
 def _is_hwio(arrays: Mapping[str, np.ndarray]) -> bool:

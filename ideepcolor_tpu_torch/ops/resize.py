@@ -8,6 +8,10 @@ the full-res getters use:
   (:func:`linear_resize_matrix_np`, :func:`nearest_resize_matrix_np`)
   applied on the device by two matrix products
   (:func:`zoom_with_matrices`, a library ``matmul`` as in the JAX package);
+* the GUI's window resize, ``cv2.INTER_CUBIC`` as a matrix
+  (:func:`cubic_resize_matrix_np`) for the same two products;
+* the dist head's integer-factor nearest upsample
+  (:func:`upsample_nearest`);
 * the net-size image resize, :func:`resize_u8_half_pixel`: ``cv2.resize``
   with ``INTER_LINEAR`` (half-pixel centres, no antialias), written in
   torch integer arithmetic so the port needs no cv2 or PIL.
@@ -47,6 +51,42 @@ def nearest_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     idx = np.clip(np.floor(c + 0.5).astype(np.int32), 0, n_in - 1)
     m[np.arange(n_out), idx] = 1.0
     return m
+
+
+def cubic_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) ``cv2.INTER_CUBIC`` interpolation matrix: half-pixel
+    centers, Catmull-Rom-style kernel with A=-0.75, replicated borders.
+
+    Bicubic resampling is separable and linear, so
+    :func:`zoom_with_matrices` serves it: the GUI's window-frame resize is
+    cv2's by swapping the matrices."""
+    m = np.zeros((n_out, n_in), np.float32)
+    if n_in == 1:
+        m[:, 0] = 1.0
+        return m
+    A = -0.75
+    c = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    sx = np.floor(c).astype(np.int64)
+    t = c - sx
+    # OpenCV's interpolateCubic coefficient polynomial (A = -0.75)
+    w0 = ((A * (t + 1) - 5 * A) * (t + 1) + 8 * A) * (t + 1) - 4 * A
+    w1 = ((A + 2) * t - (A + 3)) * t * t + 1
+    w2 = ((A + 2) * (1 - t) - (A + 3)) * (1 - t) * (1 - t) + 1
+    w3 = 1.0 - w0 - w1 - w2
+    rows = np.arange(n_out)
+    for k, w in ((-1, w0), (0, w1), (1, w2), (2, w3)):
+        idx = np.clip(sx + k, 0, n_in - 1)
+        np.add.at(m, (rows, idx), w.astype(np.float32))
+    return m
+
+
+def upsample_nearest(x: torch.Tensor, factor: int, h_axis: int = -3,
+                     w_axis: int = -2) -> torch.Tensor:
+    """Integer-factor nearest upsample (``nn.Upsample(mode='nearest')``),
+    the SIGGRAPH dist head's x4 distribution upsample. The default axes
+    are the channel-last layout's."""
+    x = x.repeat_interleave(factor, dim=h_axis % x.ndim)
+    return x.repeat_interleave(factor, dim=w_axis % x.ndim)
 
 
 def zoom_with_matrices(x: torch.Tensor, rh: torch.Tensor,

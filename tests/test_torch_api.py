@@ -168,7 +168,10 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax' or "
         "k.startswith(('jaxlib', 'ideepcolor_tpu.')) or "
         "k == 'ideepcolor_tpu')\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 22, names\n"
+        "new = {'data.color_bins', 'data.lab_gamut', 'ops.quantize', "
+        "'ops.kmeans', 'ops.gamut'}\n"
+        "assert {'ideepcolor_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

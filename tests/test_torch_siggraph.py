@@ -1,5 +1,5 @@
 """Carrying the SIGGRAPH U-Net's weights across: JAX params -> the port's
-nn.Module, held to JAX ``siggraph.apply(dist=False)`` on the CPU in f32."""
+nn.Module, held to JAX ``siggraph.apply`` (both heads) on the CPU in f32."""
 
 import os
 
@@ -128,3 +128,50 @@ def test_random_init_is_seeded_and_runs():
         out = net(A, B, M)
     assert out.shape == (1, 2, 64, 64) and torch.isfinite(out).all()
     assert out.abs().max() <= 110.0
+
+
+def _params(source):
+    if source == "student_w025":
+        with np.load(STUDENT) as z:
+            return {k: z[k] for k in z.files}        # HWIO, stored as f16
+    return {k: np.asarray(v) for k, v in
+            jsig.init_params(jax.random.key(4), width=0.125).items()}
+
+
+@pytest.mark.parametrize("dist_lowres", [True, False])
+@pytest.mark.parametrize("source", ["init_w0125", "student_w025"])
+def test_dist_head_matches_jax_apply(source, dist_lowres):
+    """forward(dist=True) at Xd=64: the 529-bin map within 1e-5 of JAX's
+    (measured 2.1e-9 for the random init, 6.7e-8 for the student, whose
+    largest p is 0.067: the softmax of logits x 0.2 flattens differences),
+    rows sum to 1 within 1e-5 (measured 1.0e-6), at H/4 when dist_lowres and its x4 nearest repeat otherwise.
+    reg2 is the double-110 quirk: exactly 110 x the non-dist output of the
+    same module, and within 110 x the U-Net's 1e-3 of JAX's (measured
+    5.6e-3 and 3.2e-3)."""
+    params = _params(source)
+    A, B, M = _inputs(3)
+    want_reg, want_cl = (np.asarray(x) for x in jsig.apply(
+        {k: jnp.asarray(v, jnp.float32) for k, v in params.items()},
+        A, B, M, 0.0, dist=True, dist_lowres=dist_lowres))
+    net = tsig.SIGGRAPHGenerator.from_state_dict(
+        tsig.state_dict_from_params(params))
+    nchw = lambda x: torch.from_numpy(x).permute(0, 3, 1, 2)  # noqa: E731
+    with torch.no_grad():
+        reg2, cl = net(nchw(A), nchw(B), nchw(M), 0.0, dist=True,
+                       dist_lowres=dist_lowres)
+        reg = net(nchw(A), nchw(B), nchw(M), 0.0)
+    side = 16 if dist_lowres else 64
+    assert cl.shape == (1, 529, side, side) and reg2.shape == (1, 2, 64, 64)
+    got_cl = cl.permute(0, 2, 3, 1).numpy()
+    assert got_cl.shape == want_cl.shape
+    assert np.abs(got_cl - want_cl).max() <= 1e-5
+    assert np.abs(got_cl.sum(-1) - 1.0).max() <= 1e-5
+    assert torch.equal(reg2, reg * 110.0)
+    assert reg2.abs().max() > 110.0                   # really scaled twice
+    assert np.abs(reg2.permute(0, 2, 3, 1).numpy() - want_reg).max() \
+        <= 110 * 1e-3
+    if not dist_lowres:
+        with torch.no_grad():
+            _, low = net(nchw(A), nchw(B), nchw(M), 0.0, dist=True,
+                         dist_lowres=True)
+        assert torch.equal(cl[:, :, 1::4, 2::4], low)
