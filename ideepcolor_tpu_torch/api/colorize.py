@@ -9,12 +9,17 @@ state fields, -1 sentinels and shape checks.
 
 Behind it, the image state lives on ``device`` (the card unless the caller
 passes ``device="cpu"``), and every frame is composed by kernel K2; the
-table programs rasterize their hints with kernel K1.
+table programs rasterize their hints with kernel K1. On the card every click
+program is a captured CUDA graph (``engine.graphs``): a click stages its
+hint table, count and pixel through one pinned buffer, replays one graph,
+copies out the outputs it keeps (the graph overwrites its own on the next
+click) and reads back what it returns. On the CPU the programs are the plain
+functions. ``prep_net(dtype="bfloat16")`` is the serving precision; f32
+parity is the default.
 
-Not ported yet: bf16 serving, the ``abq`` and ``*_host`` click variants
-(with the packed-row click+suggest program; they wait for the native host
-ops), ``net_forward_fullres``, the ``*_async`` getters and the Caffe
-backends.
+Not ported yet: the ``abq`` and ``*_host`` click variants (with the
+packed-row click+suggest program; they wait for the native host ops) and
+the Caffe backends.
 """
 
 from __future__ import annotations
@@ -23,12 +28,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..engine import graphs
 from ..engine import pipeline as P
 from ..models.siggraph import (SIGGRAPHGenerator, init_state_dict,
                                load_state_dict_file)
 from ..ops import colorspace as cs
 from ..ops.cuda import colorspace_kernel as k2
-from ..ops.cuda import hints_kernel as k1
 from ..ops.quantize import make_pts_grid
 from ..ops.resize import (linear_resize_matrix_np, nearest_resize_matrix_np,
                           resize_u8_half_pixel, zoom_with_matrices)
@@ -77,6 +82,7 @@ class ColorizeImageBase:
         self.output_rgb = None
         self._dev_output_ab = None
         self._fullres_hw = None
+        self._stage = None
 
     def _to_dev(self, arr, dtype=None) -> torch.Tensor:
         """A numpy array (copied up) or a tensor (moved if it lies
@@ -203,9 +209,31 @@ class ColorizeImageBase:
             return -1
         return self.output_rgb
 
-    def _dev_table(self, boxes, values, count):
-        return (self._to_dev(np.asarray(boxes, np.int32)),
-                self._to_dev(np.asarray(values, np.float32)), int(count))
+    def _dev_table(self, boxes, values, count, h=None, w=None):
+        """A click's table (and pixel) as its program takes them. On the
+        CPU: tensors and Python ints. On the card: the fixed device views of
+        this model's ``graphs.TableStage``, refilled by one asynchronous
+        copy, so the captured programs read the live count and pixel."""
+        pixel = () if h is None else (int(h), int(w))
+        if self.device.type != "cuda":
+            return (self._to_dev(np.asarray(boxes, np.int32)),
+                    self._to_dev(np.asarray(values, np.float32)),
+                    int(count)) + pixel
+        if pixel and not (0 <= pixel[0] < self.Xd and 0 <= pixel[1] < self.Xd):
+            raise IndexError(f"pixel {pixel} outside the {self.Xd}x{self.Xd} "
+                             f"net frame")
+        st = self._stage
+        if st is None:
+            st = self._stage = graphs.TableStage(self.device)
+        st.put(boxes, values, count, *pixel)
+        return (st.boxes, st.values, st.count) + ((st.h, st.w) if pixel
+                                                  else ())
+
+    def _keep(self, t: torch.Tensor) -> torch.Tensor:
+        """An output of a click program that the model holds past the next
+        click: on the card a copy, since the captured graph writes its own
+        buffers again on every replay."""
+        return t.clone() if self.device.type == "cuda" else t
 
     def _set_hint_mirrors(self, hints: torch.Tensor):
         """K1's planar (ab, mask) output, read back once, becomes the numpy
@@ -217,10 +245,13 @@ class ColorizeImageBase:
     def _set_click_outputs(self, rgb, out_ab, hints):
         if self._set_hint_mirrors(hints) == -1:
             return -1
-        self._dev_output_ab = out_ab
-        self.output_rgb = rgb              # stays on the device; lazy numpy
-        self._set_out_ab_()
+        self._set_outputs(rgb, out_ab)
         return 0
+
+    def _set_outputs(self, rgb, out_ab):
+        self._dev_output_ab = self._keep(out_ab)
+        self.output_rgb = self._keep(rgb)  # stays on the device; lazy numpy
+        self._set_out_ab_()
 
     def net_forward_table_win(self, boxes, values, count, l_win_pad, rh, rw):
         """Table click that returns the window-size display frame.
@@ -270,16 +301,49 @@ class ColorizeImageBase:
             if self._output_rgb_np is None:
                 return -1
             prev = self._to_dev(self._output_rgb_np)
+        *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
         rgb, out_ab, win, colors, hints = click(
             self._dev_l_net, self._dev_l_mc,
-            *self._dev_window(l_win_pad, rh, rw),
-            *self._dev_table(boxes, values, count),
-            dist_dev, int(h), int(w), dist_model._dev_pts(), prev,
-            dist_model._generator, K=K, N=N,
+            *self._dev_window(l_win_pad, rh, rw), *table,
+            dist_dev, h_dev, w_dev, dist_model._dev_pts(), prev,
+            dist_model._generator, K=int(K), N=int(N),
             map_div=dist_model.dist_map_div)
         if self._set_click_outputs(rgb, out_ab, hints) == -1:
             return -1
         return win.cpu().numpy(), colors.cpu().numpy()
+
+    def net_forward_fullres(self, input_ab, input_mask):
+        """Forward + full-res reconstruction: ``net_forward`` followed by
+        ``get_img_fullres``, with one readback (the full-res frame). The
+        net-size frame stays on the device in ``output_rgb`` (lazy)."""
+        finish = self.net_forward_fullres_async(input_ab, input_mask)
+        return finish if finish == -1 else finish()
+
+    def net_forward_fullres_async(self, input_ab, input_mask):
+        """Dispatch the dense click and the full-res fusion, start the copy
+        of the full-res frame to the host, and return a function without
+        arguments that blocks for the frame.
+
+        A serving caller dispatches under its device lock and blocks outside
+        it. The function owns its buffers (``graphs.read_async``), so a
+        later ``load_image_array`` or click cannot change what it returns.
+        -1 on the usual sentinel failures (unset image or net, a backend
+        without a dense click program)."""
+        if not self.img_l_set or not self.net_set:
+            return -1
+        if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
+            return -1
+        out = self._dispatch_click()
+        if out is None:
+            return -1
+        self._set_outputs(*out)
+        return self.get_img_fullres_async()
+
+    def _dispatch_click(self):
+        """Dispatch the backend's dense click program on the hint mirrors
+        (no readback): ``(rgb, out_ab)`` on the device, or None when the
+        backend has no such program."""
+        return None
 
     # ----- quality probe -----
     def get_result_PSNR(self, result=-1, return_SE_map=False):
@@ -308,6 +372,14 @@ class ColorizeImageBase:
 
     def get_img_fullres(self):
         return self._fullres_from_ab(self._dev_output_ab)
+
+    def get_img_fullres_async(self):
+        """Dispatch the full-res fusion, start the copy to the host and
+        return a function without arguments that blocks for the frame (see
+        ``net_forward_fullres_async``)."""
+        return graphs.read_async(P.fullres_fuse(
+            self._dev_l_fullres, self._dev_output_ab, self._dev_rh,
+            self._dev_rw))
 
     def _fullres_from_ab(self, ab_dev: torch.Tensor) -> np.ndarray:
         return P.fullres_fuse(self._dev_l_fullres, ab_dev, self._dev_rh,
@@ -438,17 +510,24 @@ class ColorizeImageTorch(ColorizeImageBase):
         self.mask_cent = .5 if maskcent else 0
         self.pts_in_hull = make_pts_grid()               # 529x2 full grid
 
-    def prep_net(self, gpu_id=None, path='', dist=False, width=1.0):
+    def prep_net(self, gpu_id=None, path='', dist=False, dtype=None,
+                 width=1.0):
         """Load the weights at ``path`` (``.npz`` in the JAX package's HWIO
         layout or in torch's, or a ``.pth`` state dict); without a path,
         seeded random weights at ``width``. ``gpu_id`` is accepted for the
         reference's signature; the device was chosen at construction. With
         ``dist=True`` ``net_forward`` runs the distribution head and the
-        model has no click programs."""
+        model has no click programs.
+
+        ``dtype``: optional serving precision of the weights, cast after
+        loading (``"bfloat16"``: the convs run in bf16 on the tensor cores
+        with f32 accumulation, see ``SIGGRAPHGenerator.cast_weights_``).
+        None keeps f32, the parity mode."""
         sd = load_state_dict_file(path) if path else init_state_dict(width)
         self.net = SIGGRAPHGenerator.from_state_dict(sd).to(
-            self.device).requires_grad_(False)
+            self.device).requires_grad_(False).cast_weights_(dtype)
         self.dist = dist
+        dev = self.device
         if not dist:
             mc = self.mask_cent
 
@@ -458,11 +537,12 @@ class ColorizeImageTorch(ColorizeImageBase):
                 return self.net(A, B, M, mc)
 
             self._fwd_tbl = fwd
-            self._click = P.make_click_program(fwd)
-            self._click_tbl = P.make_table_click_program(fwd, self.Xd)
-            self._click_tbl_win = P.make_table_click_win_program(fwd, self.Xd)
+            self._click = P.make_click_program(fwd, dev)
+            self._click_tbl = P.make_table_click_program(fwd, self.Xd, dev)
+            self._click_tbl_win = P.make_table_click_win_program(
+                fwd, self.Xd, dev)
             self._click_tbl_win_suggest = \
-                P.make_table_click_win_suggest_program(fwd, self.Xd)
+                P.make_table_click_win_suggest_program(fwd, self.Xd, dev)
         self.net_set = True
 
     def _dist_forward(self, l_mc, ab, mask):
@@ -478,22 +558,26 @@ class ColorizeImageTorch(ColorizeImageBase):
     def net_forward(self, input_ab, input_mask):
         if super().net_forward(input_ab, input_mask) == -1:
             return -1
-        ab = self._to_dev(self.input_ab_mc, torch.float32)
-        mask = self._to_dev(self.input_mask_mult, torch.float32)
         if self.dist:
+            ab = self._to_dev(self.input_ab_mc, torch.float32)
+            mask = self._to_dev(self.input_mask_mult, torch.float32)
             # The reference's dist backend returns the raw (double-110)
             # regression array and composes no frame. The map stays at
             # Xd/4 on the device (a nearest-x4 lookup is an index mapping).
             reg2, self._dev_dist = self._dist_forward(self._dev_l_mc, ab,
                                                       mask)
             return reg2.cpu().numpy()
-        rgb, out_ab = self._click(
+        self._set_outputs(*self._dispatch_click())
+        return self.output_rgb
+
+    def _dispatch_click(self):
+        if self.dist:
+            return None
+        ab = self._to_dev(self.input_ab_mc, torch.float32)
+        mask = self._to_dev(self.input_mask_mult, torch.float32)
+        return self._click(
             self._dev_l_net, self._dev_l_mc.permute(2, 0, 1)[None],
             ab[None], mask[None])
-        self._dev_output_ab = out_ab
-        self.output_rgb = rgb
-        self._set_out_ab_()
-        return self.output_rgb
 
 
 class ColorizeImageTorchDist(ColorizeImageTorch):
@@ -503,9 +587,14 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
 
     dist_map_div = 4      # the device map is kept at Xd/4 (nearest-x4)
 
-    # Bounds for the suggestion parameters a client may set.
+    # Bounds for the suggestion parameters a client may set: on the card
+    # each distinct (K, N) is a captured graph of the whole dist forward
+    # and chain (its own buffers, a warm-up and a capture), so the values
+    # are validated and the program cache is bounded, FIFO, as the JAX
+    # class bounds its compiled programs.
     MAX_SUGGEST_K = 25
     MAX_SUGGEST_N = 100_000
+    _SUGGEST_CACHE_MAX = 8
 
     def __init__(self, Xd=256, maskcent=False, device=None):
         super().__init__(Xd, maskcent, device=device)
@@ -518,8 +607,11 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         self._dev_dist = None
         self._dist_np = None
 
-    def prep_net(self, gpu_id=None, path='', dist=True, S=.2):
-        super().prep_net(gpu_id, path, dist=True)
+    def prep_net(self, gpu_id=None, path='', dist=True, S=.2, dtype=None):
+        super().prep_net(gpu_id, path, dist=True, dtype=dtype)
+        self._predict_tbl = P.make_table_dist_program(
+            self._dist_fwd_tbl, self.Xd, self.device)
+        self._suggest_tbl_cache = {}
 
     def _dist_fwd_tbl(self, l_mc, ab, mask):
         return self._dist_forward(l_mc, ab, mask)[1]
@@ -536,22 +628,22 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         output is discarded, as the reference's predict_color does."""
         if not (self.img_l_set and self.net_set):
             return -1
-        hints = k1.rasterize_hints_planar(
-            *self._dev_table(boxes, values, count), self.Xd)
+        dist_map, hints = self._predict_tbl(
+            self._dev_l_mc, *self._dev_table(boxes, values, count))
         if self._set_hint_mirrors(hints) == -1:
             return -1
-        self._set_dist(self._dist_fwd_tbl(self._dev_l_mc, hints[:2],
-                                          hints[2:]))
+        self._set_dist(self._keep(dist_map))
         return 0
 
     def ensure_suggest_program(self, K=9, N=25000):
         """The suggest program for a validated (K, N). Raises ValueError on
-        out-of-range values (a server maps it to HTTP 400).
+        out-of-range values (a server maps it to HTTP 400). The cache holds
+        at most ``_SUGGEST_CACHE_MAX`` programs, FIFO, as the JAX class's.
 
-        The JAX class also keeps a bounded FIFO cache of these programs and
-        can compile one ahead of its first call, because each (K, N) is a
-        compile of the whole model there. Eager PyTorch compiles nothing,
-        so the port carries neither: the program is a closure."""
+        The JAX class can also compile a program ahead of its first call
+        from shape structs alone (``compile_now``); a CUDA graph is captured
+        from a real run on real buffers, so the port captures at the first
+        call and has no such option."""
         K, N = int(K), int(N)
         if not 1 <= K <= self.MAX_SUGGEST_K:
             raise ValueError(
@@ -559,8 +651,16 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         if not 1000 <= N <= self.MAX_SUGGEST_N:
             raise ValueError(
                 f"N must be in [1000, {self.MAX_SUGGEST_N}], got {N}")
-        return P.make_table_suggest_program(
-            self._dist_fwd_tbl, self.Xd, K=K, N=N, map_div=self.dist_map_div)
+        prog = self._suggest_tbl_cache.get((K, N))
+        if prog is None:
+            while len(self._suggest_tbl_cache) >= self._SUGGEST_CACHE_MAX:
+                self._suggest_tbl_cache.pop(
+                    next(iter(self._suggest_tbl_cache)))
+            prog = self._suggest_tbl_cache[(K, N)] = \
+                P.make_table_suggest_program(
+                    self._dist_fwd_tbl, self.Xd, K=K, N=N,
+                    map_div=self.dist_map_div, device=self.device)
+        return prog
 
     def suggest_table(self, boxes, values, count, h, w, K=9, N=25000):
         """Serving suggest: hint-table dist forward + CMF sampling +
@@ -574,11 +674,11 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         prog = self.ensure_suggest_program(K, N)
         dist_map, colors, conf, hints = prog(
             self._dev_l_net, self._dev_l_mc,
-            *self._dev_table(boxes, values, count), int(h), int(w),
+            *self._dev_table(boxes, values, count, h, w),
             self._dev_pts(), self._generator)
         if self._set_hint_mirrors(hints) == -1:
             return -1
-        self._set_dist(dist_map)
+        self._set_dist(self._keep(dist_map))
         return colors.cpu().numpy(), conf.cpu().numpy()
 
     def net_forward(self, input_ab, input_mask):

@@ -33,6 +33,12 @@
 //   for (kAny, kAny), which every other layout takes.
 // - 64-thread blocks, so the 256 x 256 click frame is still 256 blocks,
 //   enough for the 132 SMs.
+// - A batch of N frames is one launch: the grid's z axis is the frame, each
+//   plane has a batch stride of its own (a (N, 2, S, S) prediction's a and b
+//   planes do not fold into one 2-D plane), and the groups follow the flat
+//   pixel index of the whole (N, H, W, 3) output, so the alignment argument
+//   above holds for every frame whatever H * W is. The single-frame entries
+//   are the N = 1 case.
 // - The fused entry's sRGB -> linear step has 256 possible inputs: it reads
 //   a 256-entry table in shared memory that the wrapper builds once per
 //   device with the plain version's own torch ops.
@@ -104,7 +110,7 @@ constexpr int kThreads = 64;
 
 struct Plane {
   const float* p;
-  int sy, sx;  // element strides
+  int sb, sy, sx;  // element strides: frame, row, pixel
 };
 
 __device__ __forceinline__ float finv(float ft) {
@@ -176,7 +182,7 @@ __device__ __forceinline__ float load1(const Plane& q, int y, int x) {
 
 template <int LM, int ABM, bool kAb>
 __global__ void __launch_bounds__(kThreads)
-    lab2rgb_kernel(Plane l, Plane a, Plane b, int width,
+    lab2rgb_kernel(Plane l, Plane a, Plane b, int height, int width,
                    uint8_t* __restrict__ out, float* __restrict__ ab_out,
                    const float* __restrict__ lut) {
   __shared__ float s_lut[kAb ? 256 : 1];
@@ -185,7 +191,12 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
   const int y = blockIdx.y;
-  const int row = y * width;  // flat index of the row's first pixel
+  const int frame = blockIdx.z;
+  l.p += frame * l.sb;
+  a.p += frame * a.sb;
+  b.p += frame * b.sb;
+  // flat index, in the whole output, of the row's first pixel
+  const int row = (frame * height + y) * width;
   const int x0 = 4 * static_cast<int>(blockIdx.x * kThreads + threadIdx.x) -
                  (row & 3);
   if (x0 >= width) return;
@@ -226,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 
 struct Args {
   Plane l, a, b;
-  int height, width;
+  int frames, height, width;
   uint8_t* out;
   float* ab_out;
   const float* lut;
@@ -237,18 +248,19 @@ template <int LM, int ABM, bool kAb>
 int run(const Args& g) {
   // groups per row: W/4, or one more (and a part) when rows start unaligned
   const int groups = (g.width & 3) ? (g.width + 6) / 4 : g.width / 4;
-  const dim3 grid((groups + kThreads - 1) / kThreads, g.height);
+  const dim3 grid((groups + kThreads - 1) / kThreads, g.height, g.frames);
   lab2rgb_kernel<LM, ABM, kAb><<<grid, kThreads, 0, g.stream>>>(
-      g.l, g.a, g.b, g.width, g.out, g.ab_out, g.lut);
+      g.l, g.a, g.b, g.height, g.width, g.out, g.ab_out, g.lut);
   return static_cast<int>(cudaGetLastError());
 }
 
 Args args(const void* l, int l_sy, int l_sx, const void* a, int a_sy,
           int a_sx, const void* b, int b_sy, int b_sx, int height, int width,
           void* out, void* ab_out, const void* lut, void* stream) {
-  return {{static_cast<const float*>(l), l_sy, l_sx},
-          {static_cast<const float*>(a), a_sy, a_sx},
-          {static_cast<const float*>(b), b_sy, b_sx},
+  return {{static_cast<const float*>(l), 0, l_sy, l_sx},
+          {static_cast<const float*>(a), 0, a_sy, a_sx},
+          {static_cast<const float*>(b), 0, b_sy, b_sx},
+          1,
           height,
           width,
           static_cast<uint8_t*>(out),
@@ -291,6 +303,30 @@ extern "C" int ideepcolor_lab_to_rgb_u8_ab(
   switch (l_mode * 3 + ab_mode) {
     case kVec * 3 + kVec: return run<kVec, kVec, true>(g);
     case kAny * 3 + kAny: return run<kAny, kAny, true>(g);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The batched compose: frames x (height, width) planes, each addressed by
+// element strides (sb, sy, sx) with sb the stride from one frame to the
+// next; out: (frames, height, width, 3) uint8, contiguous; frames <= 65535.
+// Modes as the compose entry's. Returns cudaGetLastError().
+extern "C" int ideepcolor_lab_to_rgb_u8_batch(
+    const void* l, int l_sb, int l_sy, int l_sx, const void* a, int a_sb,
+    int a_sy, int a_sx, const void* b, int b_sb, int b_sy, int b_sx,
+    int frames, int height, int width, int l_mode, int ab_mode, void* out,
+    void* stream) {
+  Args g = args(l, l_sy, l_sx, a, a_sy, a_sx, b, b_sy, b_sx, height, width,
+                out, nullptr, nullptr, stream);
+  g.l.sb = l_sb;
+  g.a.sb = a_sb;
+  g.b.sb = b_sb;
+  g.frames = frames;
+  switch (l_mode * 3 + ab_mode) {
+    case kVec * 3 + kVec: return run<kVec, kVec, false>(g);
+    case kVec * 3 + kAny: return run<kVec, kAny, false>(g);
+    case kVec * 3 + kZero: return run<kVec, kZero, false>(g);
+    case kAny * 3 + kAny: return run<kAny, kAny, false>(g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -28,6 +28,16 @@
 //   pixels one by one in the same kernel.
 // Output is planar f32, (3, S, S): planes 0 and 1 are ab, plane 2 the mask,
 // the channel order the U-Net input concatenates (ab, mask).
+//
+// Two entries share that body. The first takes the live count by value and
+// sizes the culled list's shared memory from it. The second, the batched
+// entry, takes N tables and N counts that lie in device memory, with the
+// table on the grid's z axis: (N, M, 4) boxes, (N, M, 2) values and (N,)
+// counts give (N, 3, S, S) in one launch. It reads each count where the
+// kernel runs (clamped to [0, M]) and sizes shared memory for all M slots
+// (256 x 24 B), so one captured CUDA graph serves every count, as the
+// Pallas kernel takes the count as a traced scalar. With N = 1 it is the
+// captured clicks' rasterizer; with N > 1 the batch engine's.
 
 #include <cstdint>
 
@@ -41,13 +51,15 @@ constexpr int kGroupsPerRow = kTileCols / 4;
 constexpr int kThreads = kTileRows * kGroupsPerRow;  // 128
 constexpr int kWarps = kThreads / 32;
 
-__global__ void __launch_bounds__(kThreads)
-    raster_kernel(const int4* __restrict__ boxes,
-                  const float2* __restrict__ values, int count, int size,
-                  float* __restrict__ out) {
+// One table into one (3, size, size) output. capacity >= count is the
+// number of slots the dynamic shared memory was sized for.
+__device__ __forceinline__ void raster_tile(const int4* __restrict__ boxes,
+                                            const float2* __restrict__ values,
+                                            int count, int capacity, int size,
+                                            float* __restrict__ out) {
   extern __shared__ int4 smem[];
-  int4* s_box = smem;                                       // count x 16 B
-  float2* s_val = reinterpret_cast<float2*>(smem + count);  // count x 8 B
+  int4* s_box = smem;                                          // x 16 B
+  float2* s_val = reinterpret_cast<float2*>(smem + capacity);  // x 8 B
   __shared__ int s_hits[kWarps];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -122,6 +134,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    raster_kernel(const int4* __restrict__ boxes,
+                  const float2* __restrict__ values, int count, int size,
+                  float* __restrict__ out) {
+  raster_tile(boxes, values, count, count, size, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    raster_batch_kernel(const int4* __restrict__ boxes,
+                        const float2* __restrict__ values,
+                        const int* __restrict__ counts, int slots, int size,
+                        float* __restrict__ out) {
+  const int n = blockIdx.z;
+  const int count = min(max(counts[n], 0), slots);
+  raster_tile(boxes + static_cast<size_t>(n) * slots,
+              values + static_cast<size_t>(n) * slots, count, slots, size,
+              out + static_cast<size_t>(n) * 3 * size * size);
+}
+
 }  // namespace
 
 // boxes: (count, 4) int32, 16-byte aligned; values: (count, 2) f32, 8-byte
@@ -139,5 +170,26 @@ extern "C" int ideepcolor_rasterize_hints(const void* boxes,
   raster_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(boxes), static_cast<const float2*>(values),
       count, size, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batched, device-count entry. boxes: (n, slots, 4) int32, 16-byte
+// aligned; values: (n, slots, 2) f32, 8-byte aligned; counts: (n,) int32 in
+// device memory, read by the kernel and clamped to [0, slots]; out: (n, 3,
+// size, size) f32, 16-byte aligned, 3 * size * size < 2^31, n <= 65535,
+// slots * 24 B within a block's 48 KB. Returns cudaGetLastError().
+extern "C" int ideepcolor_rasterize_hints_batch(const void* boxes,
+                                                const void* values,
+                                                const void* counts, int n,
+                                                int slots, int size,
+                                                void* out, void* stream) {
+  const dim3 grid((size + kTileCols - 1) / kTileCols,
+                  (size + kTileRows - 1) / kTileRows, n);
+  const size_t smem =
+      static_cast<size_t>(slots) * (sizeof(int4) + sizeof(float2));
+  raster_batch_kernel<<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(boxes), static_cast<const float2*>(values),
+      static_cast<const int*>(counts), slots, size, static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
-"""Click and full-res programs of the port."""
+"""Click and full-res programs of the port, their captured form on the
+card, and the interactive, streaming and batch engines."""

@@ -1,17 +1,23 @@
 """The click, suggestion and full-res programs, on tensors.
 
 Counterpart of ``ideepcolor_tpu/engine/pipeline.py``. There each stage
-chain is one jitted XLA program; PyTorch runs eagerly, so here each is a
-plain function whose fused steps are the hand-written kernels: K1 (hint
-rasterizer) at the head of the table click and K2 (Lab -> uint8 compose)
-at every frame. The clicks take K2's fused entry, which also returns the
+chain is one jitted XLA program. Here each is a plain function whose fused
+steps are the hand-written kernels: K1 (hint rasterizer) at the head of the
+table click and K2 (Lab -> uint8 compose) at every frame. A factory called
+with a CUDA ``device`` returns that function as a captured CUDA graph
+(``engine.graphs.GraphProgram``: one graph launch per click, the plain
+function kept as ``.fn``); for the CPU, or without a device, it returns the
+plain function itself. A program's hint count and click pixel are Python
+ints on the plain path and one-element device tensors under capture, where
+K1's device-count entry and a gather by device index read them. The clicks take K2's fused entry, which also returns the
 requantized ab, the click's second output; the window frame and the uint8
 suggestion palette take K2's compose. The suggestion chain between them
 (``ops.kmeans``) is torch ops, as it is ``jnp`` ops in the JAX package.
 
 The JAX package pads full-res planes to 256-px buckets so one compiled
-program serves many image sizes; eager PyTorch compiles nothing, so the
-port builds the interpolation matrices at the exact size. The frames are
+program serves many image sizes; the full-res programs here run eagerly and
+compile nothing, so the port builds the interpolation matrices at the exact
+size. The frames are
 the ones the JAX package crops out of its padded buffers.
 """
 
@@ -25,6 +31,7 @@ from ..ops import quantize
 from ..ops.cuda import colorspace_kernel as k2
 from ..ops.cuda import hints_kernel as k1
 from ..ops.resize import zoom_with_matrices
+from . import graphs
 
 
 def rgb_to_lab_dev_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
@@ -76,7 +83,7 @@ def sup_fullres(planes: torch.Tensor, rh0: torch.Tensor,
     return compose_rgb_u8(50.0 * up[..., :1], up[..., 1:])
 
 
-def make_table_click_program(apply_fn, size: int):
+def make_table_click_program(apply_fn, size: int, device=None):
     """The table click: K1 -> U-Net -> K2's fused entry (frame and
     requantized ab).
 
@@ -95,10 +102,10 @@ def make_table_click_program(apply_fn, size: int):
         rgb, out_ab = k2.lab_to_rgb_u8_ab(l_net[..., 0], pred[0], pred[1])
         return rgb, out_ab, hints
 
-    return click
+    return graphs.program(click, device)
 
 
-def make_table_click_win_program(apply_fn, size: int):
+def make_table_click_win_program(apply_fn, size: int, device=None):
     """The table click that also composes the GUI's window-size frame:
     the requantized output ab resized by the matrices rh (Hw, size) / rw
     (Ww, size) (``ops.resize.cubic_resize_matrix_np`` for the GUI), fused
@@ -115,18 +122,29 @@ def make_table_click_win_program(apply_fn, size: int):
         win = compose_rgb_u8(l_win, zoom_with_matrices(out_ab, rh, rw))
         return rgb, out_ab, win, hints
 
-    return click
+    return graphs.program(click, device)
 
 
-def suggest_at(dist_S: torch.Tensor, h: int, w: int,
-               centers_tbl: torch.Tensor, generator: torch.Generator,
-               K: int = 5, N: int = 25000):
+def pixel_at(t: torch.Tensor, h, w) -> torch.Tensor:
+    """``t[h, w]`` of a (H, W, ...) tensor. Python ints give a view; one-
+    element index tensors on ``t``'s device (a captured program's click
+    pixel) give a gather that runs where the graph runs. Neither reads
+    anything back."""
+    if not isinstance(h, torch.Tensor):
+        return t[h, w]
+    flat = (h.to(torch.int64) * t.shape[1] + w.to(torch.int64)).reshape(1)
+    return t.reshape(t.shape[0] * t.shape[1],
+                     *t.shape[2:]).index_select(0, flat)[0]
+
+
+def suggest_at(dist_S: torch.Tensor, h, w, centers_tbl: torch.Tensor,
+               generator: torch.Generator, K: int = 5, N: int = 25000):
     """Color suggestions at pixel (h, w) of a (H,W,Q) distribution map:
     the gather, CMF sampling and k-means run on the map's device and give
-    (K,2) centers and (K,) confidences there. h and w are Python ints, so
-    the lookup is a view and reads nothing back."""
-    return km.ab_recommendations(dist_S[h, w, :], centers_tbl, generator,
-                                 K=K, N=N)
+    (K,2) centers and (K,) confidences there. h and w are Python ints or
+    device index tensors (:func:`pixel_at`); nothing is read back."""
+    return km.ab_recommendations(pixel_at(dist_S, h, w), centers_tbl,
+                                 generator, K=K, N=N)
 
 
 def dist_entropy(dist: torch.Tensor) -> torch.Tensor:
@@ -135,13 +153,14 @@ def dist_entropy(dist: torch.Tensor) -> torch.Tensor:
     return quantize.entropy(dist, axis=-1)
 
 
-def _palette_lab(l_net: torch.Tensor, h: int, w: int,
+def _palette_lab(l_net: torch.Tensor, h, w,
                  centers: torch.Tensor) -> torch.Tensor:
     """(K,2) ab centers at the click pixel's own L -> (K,3) Lab."""
-    return torch.cat([l_net[h, w].expand(centers.shape[0], 1), centers], 1)
+    return torch.cat([pixel_at(l_net, h, w).expand(centers.shape[0], 1),
+                      centers], 1)
 
 
-def make_table_click_win_suggest_program(apply_fn, size: int):
+def make_table_click_win_suggest_program(apply_fn, size: int, device=None):
     """Dist-session GUI click: net frame, window frame and color
     suggestions at the click pixel (h, w) of the per-image distribution map.
 
@@ -153,7 +172,9 @@ def make_table_click_win_suggest_program(apply_fn, size: int):
     plain ``lab_to_rgb`` chain, clipped: float colors, not a uint8 frame).
     map_div is the map's coordinate divisor (4 for the SIGGRAPH H/4 map).
     The JAX factory takes K, N and map_div because each is a compile there;
-    here they are arguments of the click, and one program serves them all."""
+    here they are keyword options of the click: the plain function serves
+    them all, and the captured program keeps one graph per (K, N, map_div)
+    in its bounded cache."""
     win_click = make_table_click_win_program(apply_fn, size)
 
     @torch.no_grad()
@@ -166,14 +187,28 @@ def make_table_click_win_suggest_program(apply_fn, size: int):
                                     centers_tbl, generator, K=K, N=N)
         colors = cs.lab_to_rgb(_palette_lab(l_net, h, w, centers)
                                ).clamp(0.0, 1.0)
-        cur = prev_rgb[h, w].to(torch.float32) / 255.0
+        cur = pixel_at(prev_rgb, h, w).to(torch.float32) / 255.0
         return rgb, out_ab, win, torch.cat([cur[None], colors], 0), hints
 
-    return click
+    return graphs.program(click, device)
+
+
+def make_table_dist_program(dist_fwd, size: int, device=None):
+    """The per-image suggestion forward from a hint table: K1 -> dist
+    forward. ``predict(l_mc, boxes, values, count)`` gives ``(dist_map,
+    hints)``, with ``dist_fwd`` as in :func:`make_table_suggest_program`."""
+
+    @torch.no_grad()
+    def predict(l_mc, boxes, values, count):
+        hints = k1.rasterize_hints_planar(boxes, values, count, size)
+        return dist_fwd(l_mc, hints[:2], hints[2:]), hints
+
+    return graphs.program(predict, device)
 
 
 def make_table_suggest_program(dist_fwd, size: int, K: int = 9,
-                               N: int = 25000, map_div: int = 4):
+                               N: int = 25000, map_div: int = 4,
+                               device=None):
     """Serving suggest: hint table -> K1 -> dist forward -> CMF sampling ->
     k-means -> uint8 palette through K2's compose.
 
@@ -197,10 +232,10 @@ def make_table_suggest_program(dist_fwd, size: int, K: int = 9,
                                       lab[None, :, 2])[0]
         return dist_map, colors, conf, hints
 
-    return sugg
+    return graphs.program(sugg, device)
 
 
-def make_click_program(apply_fn):
+def make_click_program(apply_fn, device=None):
     """The dense click: ``apply_fn(*model_args) -> (1,2,H,W)`` ab, then
     K2's fused entry. ``click(l_net, *model_args)`` gives
     ``(rgb (H,W,3) uint8, out_ab (H,W,2))``."""
@@ -210,4 +245,4 @@ def make_click_program(apply_fn):
         ab = apply_fn(*model_args)[0]
         return k2.lab_to_rgb_u8_ab(l_net[..., 0], ab[0], ab[1])
 
-    return click
+    return graphs.program(click, device)

@@ -16,7 +16,12 @@ relayout. Details carried over exactly:
   conv8_3 (``model_class``, a 1x1 conv; softmax of its logits x 0.2) and
   returns the regression output times 110 a SECOND time, the reference's
   quirk in dist mode (callers ignore that value; it is reproduced for parity
-  of the public return).
+  of the public return);
+* serving precision: ``forward(precision_name="default")`` lets the convs
+  take TF32 (the JAX package's ``Precision.DEFAULT``), and
+  :meth:`SIGGRAPHGenerator.cast_weights_` stores the weights in bf16, where
+  each conv casts its input to the weight's type and its output back to
+  f32 (the JAX package's ``_cast_params`` and ``layers.conv2d``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import conv_precision
 from ..ops.resize import upsample_nearest
 from . import layers as L
 
@@ -64,13 +70,29 @@ def scaled_channels(width: float) -> tuple[int, int, int, int]:
     return tuple(r8(c) for c in FULL_CHANNELS)
 
 
+class _Conv2d(nn.Conv2d):
+    """A conv whose weight's type is its compute type: the input is cast to
+    it and the output back to f32 (accumulation is f32 in cuDNN and on the
+    CPU). With f32 weights both casts return their argument."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype)).to(torch.float32)
+
+
+class _ConvTranspose2d(nn.ConvTranspose2d):
+    """As :class:`_Conv2d`, for the three k4 s2 p1 upsampling convs."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype)).to(torch.float32)
+
+
 def _conv(cin: int, cout: int, k: int = 3, dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
-                     dilation=dilation)
+    return _Conv2d(cin, cout, k, padding=dilation * (k - 1) // 2,
+                   dilation=dilation)
 
 
 def _deconv(cin: int, cout: int) -> nn.ConvTranspose2d:
-    return nn.ConvTranspose2d(cin, cout, 4, stride=2, padding=1)
+    return _ConvTranspose2d(cin, cout, 4, stride=2, padding=1)
 
 
 def _trunk(cin: int, cout: int, n: int, dilation: int = 1) -> nn.Sequential:
@@ -123,19 +145,53 @@ class SIGGRAPHGenerator(nn.Module):
         net.load_state_dict(sd, strict=True)
         return net.eval()
 
+    def cast_weights_(self, dtype) -> "SIGGRAPHGenerator":
+        """Serving precision, in place (the JAX package's ``_cast_params``;
+        ``None`` leaves f32). The convs' weights and biases are stored in
+        ``dtype`` ("bfloat16"), which makes it their compute type. BatchNorm
+        computes in f32 on parameters rounded through ``dtype``, as every
+        parameter is there. Where the JAX package also rounds elementwise
+        results to bf16 (``x - mean`` in its batchnorm, ``tanh(.) * 110``
+        at the output), this module keeps f32."""
+        if dtype is None:
+            return self
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                m.to(dt)
+            elif isinstance(m, nn.BatchNorm2d):
+                for t in (m.weight, m.bias, m.running_mean, m.running_var):
+                    t.data = t.data.to(dt).to(torch.float32)
+        return self
+
     def forward(self, input_A: torch.Tensor, input_B: torch.Tensor,
                 mask_B: torch.Tensor, maskcent: float = 0.0,
-                dist: bool = False, dist_lowres: bool = False):
+                dist: bool = False, dist_lowres: bool = False,
+                precision_name: str = "highest"):
         """input_A (N,1,H,W) L - 50; input_B (N,2,H,W) hint ab; mask_B
         (N,1,H,W) hint mask -> (N,2,H,W) ab in [-110, 110].
+
+        ``precision_name``: "highest" (f32 convs, the parity mode) or
+        "default" (the convs may take TF32 on the card), scoped to this
+        call (``device.conv_precision``).
 
         With ``dist=True`` returns ``(out_reg * 110, out_cl)``: out_cl
         (N,529,H,W) softmax probabilities over the ab bins, the H/4 map
         nearest-upsampled x4. A lookup on the upsampled map equals one at
         (h // 4, w // 4) on the H/4 map, so ``dist_lowres=True`` keeps
         (N,529,H/4,W/4) and saves 16x the memory."""
+        with conv_precision(precision_name):
+            return self._forward(input_A, input_B, mask_B, maskcent, dist,
+                                 dist_lowres)
+
+    def _forward(self, input_A, input_B, mask_B, maskcent, dist,
+                 dist_lowres):
+        # contiguous NCHW whatever the callers' views are: channel-last
+        # views (the engines' boundary layout) would make ``cat`` give a
+        # channels-last tensor and the convs take other kernels, with other
+        # last bits, than for the clicks' planar inputs
         x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
-                      dim=1)
+                      dim=1).contiguous()
         conv1_2 = self.model1(x)
         conv2_2 = self.model2(conv1_2[:, :, ::2, ::2])
         conv3_3 = self.model3(conv2_2[:, :, ::2, ::2])
@@ -154,6 +210,19 @@ class SIGGRAPHGenerator(nn.Module):
         if not dist_lowres:
             out_cl = upsample_nearest(out_cl, 4, h_axis=-2, w_axis=-1)
         return out_reg * 110.0, out_cl
+
+
+def as_module(weights, device=None) -> SIGGRAPHGenerator:
+    """What the engines take where the JAX functions take ``params``: a
+    :class:`SIGGRAPHGenerator` (returned as it is, moved to ``device`` when
+    one is given) or a state dict of :func:`state_dict_from_params` /
+    :func:`load_state_dict_file` (a module is built from it on every call:
+    callers that call often pass the module)."""
+    if not isinstance(weights, nn.Module):
+        weights = SIGGRAPHGenerator.from_state_dict(weights)
+    if device is not None:
+        weights = weights.to(device)
+    return weights.requires_grad_(False)
 
 
 def _is_hwio(arrays: Mapping[str, np.ndarray]) -> bool:

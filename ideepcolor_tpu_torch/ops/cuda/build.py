@@ -45,10 +45,21 @@ def _nvcc() -> str:
         "run on the CPU by passing CPU tensors / device='cpu'")
 
 
+# every Kernel made, in order: what a CUDA-graph capture looks over to learn
+# which kernel launches it recorded
+KERNELS: list["Kernel"] = []
+
+
 class Kernel:
     """One entry point of a hand-written kernel: its source, its C symbol
     and its count of launches. ``launch`` calls the C function, raises on a
-    non-zero ``cudaGetLastError()`` and only then adds one to ``launches``."""
+    non-zero ``cudaGetLastError()`` and only then adds one to ``launches``.
+
+    A launch made while a CUDA graph is being captured runs nothing: it
+    becomes a node of the graph, and the kernel runs once each time the graph
+    is replayed. The capture (``engine.graphs``) takes such launches back out
+    of ``launches`` and adds them again at every replay, so the count stays
+    the number of times the kernel was put on the card."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  replaces: str):
@@ -61,6 +72,7 @@ class Kernel:
         self.ptxas_log = ""
         self._lib = None
         self._fn = None
+        KERNELS.append(self)
 
     def library_path(self) -> Path:
         h = hashlib.sha256()

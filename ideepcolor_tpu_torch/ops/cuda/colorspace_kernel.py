@@ -1,5 +1,5 @@
 """Kernel K2: fused Lab -> clipped, truncated uint8 RGB (``csrc/
-colorspace_kernel.cu``), with two entry points.
+colorspace_kernel.cu``), with three entry points.
 
 - :func:`lab_to_rgb_u8_hwc` (the compose) is the counterpart of
   ``ideepcolor_tpu/ops/pallas/colorspace_kernel.py`` (``lab_to_rgb_u8_planar``
@@ -8,6 +8,9 @@ colorspace_kernel.cu``), with two entry points.
 - :func:`lab_to_rgb_u8_ab` (the click's fused entry) also returns the ab of
   the uint8 frame's own Lab, which the JAX click computes in the same XLA
   program (``requantized_ab``). Both clicks call it.
+- :func:`lab_to_rgb_u8_batch` composes N frames in one launch from (N, H, W)
+  planes with a batch stride each: the batch engine's compose (the JAX
+  package's ``lab_to_rgb_u8`` of an (N, H, W, 3) Lab batch).
 
 The kernel reads the three planes through their own strides, so callers
 pass views of whatever layout they hold; :func:`load_modes` picks, from the
@@ -44,6 +47,16 @@ KERNEL_AB = Kernel(
     source="colorspace_kernel.cu",
     symbol="ideepcolor_lab_to_rgb_u8_ab",
     argtypes=_PLANES + _SHAPE + [ctypes.c_void_p] * 4,
+    replaces=_REPLACES,
+)
+
+# The batched compose: a third symbol; each plane also has a batch stride.
+KERNEL_BATCH = Kernel(
+    name="lab_to_rgb_u8_batch",
+    source="colorspace_kernel.cu",
+    symbol="ideepcolor_lab_to_rgb_u8_batch",
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] * 3
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p],
     replaces=_REPLACES,
 )
 
@@ -85,25 +98,28 @@ def lab_to_rgb_u8_plain(l: torch.Tensor, a: torch.Tensor,
 
 
 def _plane_mode(t: torch.Tensor, width: int) -> int:
-    sy, sx = t.stride()
-    if sy == 0 and sx == 0:
+    """For an (H, W) plane, or an (N, H, W) batch of them."""
+    *sb, sy, sx = t.stride()
+    if not any(t.stride()):
         return ZERO
     # float4 loads of a group starting at a 4-aligned flat output index
-    # land on 16 bytes iff the plane starts there and its rows drift from
-    # the output's by a multiple of 4 elements
-    if sx == 1 and t.data_ptr() % 16 == 0 and (sy - width) % 4 == 0:
+    # land on 16 bytes iff the plane starts there and its rows (and its
+    # frames) drift from the output's by a multiple of 4 elements
+    if (sx == 1 and t.data_ptr() % 16 == 0 and (sy - width) % 4 == 0
+            and all((s - t.shape[-2] * width) % 4 == 0 for s in sb)):
         return VEC
     return ANY
 
 
 def load_modes(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                fused: bool = False) -> tuple[int, int]:
-    """The kernel instantiation for these (H, W) planes: (L mode, ab mode).
+    """The kernel instantiation for these (H, W) planes, or (N, H, W)
+    batches of planes: (L mode, ab mode).
 
     a and b share one mode, ANY where theirs differ. The compose is built
     for a VEC L with any ab mode, the fused entry for (VEC, VEC), the
     click's layout; every other layout takes (ANY, ANY)."""
-    W = l.shape[1]
+    W = l.shape[-1]
     am, bm = _plane_mode(a, W), _plane_mode(b, W)
     abm = am if am == bm else ANY
     if _plane_mode(l, W) != VEC or (fused and abm != VEC):
@@ -112,8 +128,9 @@ def load_modes(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 def _check_planes(name: str, l: torch.Tensor, a: torch.Tensor,
-                  b: torch.Tensor) -> tuple[int, int]:
+                  b: torch.Tensor, batch: bool = False) -> tuple[int, ...]:
     planes = (l, a, b)
+    dims = 3 if batch else 2
     if l.device.type != "cuda" or any(t.device != l.device for t in planes):
         raise ValueError(f"{name}: L, a and b must lie on one CUDA device "
                          f"(or the CPU), got "
@@ -121,20 +138,22 @@ def _check_planes(name: str, l: torch.Tensor, a: torch.Tensor,
     if any(t.dtype != torch.float32 for t in planes):
         raise ValueError(f"{name}: planes must be float32, got "
                          f"{[t.dtype for t in planes]}")
-    if any(t.dim() != 2 or t.shape != l.shape for t in planes):
-        raise ValueError(f"{name}: want three (H, W) planes, got "
+    if any(t.dim() != dims or t.shape != l.shape for t in planes):
+        raise ValueError(f"{name}: want three "
+                         f"{'(N, H, W)' if batch else '(H, W)'} planes, got "
                          f"{[tuple(t.shape) for t in planes]}")
     if any(s < 0 for t in planes for s in t.stride()):
         raise ValueError(f"{name}: negative strides are not taken")
-    H, W = l.shape
-    # 32-bit offsets in the kernel; rows on the grid's y axis
-    if (H > 65535 or 3 * H * W >= _INT32
-            or any((H - 1) * t.stride(0) + (W - 1) * t.stride(1) >= _INT32
-                   for t in planes)):
-        raise ValueError(f"{name}: a {H}x{W} frame with strides "
-                         f"{[t.stride() for t in planes]} is past the "
-                         f"kernel's 32-bit offsets or 65535 rows")
-    return H, W
+    *N, H, W = l.shape
+    # 32-bit offsets in the kernel; rows and frames on the grid's y and z
+    if (H > 65535 or any(n > 65535 for n in N)
+            or 3 * l.numel() >= _INT32
+            or any(sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+                   >= _INT32 for t in planes)):
+        raise ValueError(f"{name}: {tuple(l.shape)} planes with strides "
+                         f"{[t.stride() for t in planes]} are past the "
+                         f"kernel's 32-bit offsets or 65535 rows or frames")
+    return tuple(l.shape)
 
 
 def _launch(kernel: Kernel, l, a, b, *outs) -> None:
@@ -190,6 +209,26 @@ def lab_to_rgb_u8_ab(l: torch.Tensor, a: torch.Tensor, b: torch.Tensor
         _launch(KERNEL_AB, l, a, b, rgb.data_ptr(), ab.data_ptr(),
                 srgb_lut(l.device).data_ptr())
     return rgb, ab
+
+
+def lab_to_rgb_u8_batch(l: torch.Tensor, a: torch.Tensor,
+                        b: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) f32 L, a, b planes of any strides -> (N, H, W, 3) uint8
+    frames, one launch. The plain version is :func:`lab_to_rgb_u8_plain`,
+    which is elementwise and takes the batch as it is."""
+    if l.device.type == "cpu":
+        return lab_to_rgb_u8_plain(l, a, b)
+    N, H, W = _check_planes("lab_to_rgb_u8_batch", l, a, b, batch=True)
+    KERNEL_BATCH.load()                 # no library -> raise, allocate nothing
+    out = torch.empty((N, H, W, 3), dtype=torch.uint8, device=l.device)
+    if N * H * W:
+        lm, abm = load_modes(l, a, b)
+        args = []
+        for t in (l, a, b):
+            args += [t.data_ptr(), *t.stride()]
+        KERNEL_BATCH.launch(*args, N, H, W, lm, abm, out.data_ptr(),
+                            torch.cuda.current_stream(l.device).cuda_stream)
+    return out
 
 
 def lab_to_rgb_u8_planar(l: torch.Tensor, a: torch.Tensor,

@@ -12,10 +12,13 @@ in where the JAX functions take a key. Each random function is split: its
 deterministic core takes the uniform numbers (:func:`bins_from_uniform`,
 :func:`seeds_from_uniform`) or the seeds (:func:`_lloyd`) as input.
 
-The chain runs eagerly, so its cost is launches. The restarts are a leading
-tensor dimension, the Lloyd iterations and the K-1 seeding picks are the
-only Python loops, and nothing in them reads a value back to the host: the
-degenerate-mass and empty-cluster branches are ``torch.where``.
+Run eagerly (``get_ab_reccs``) the chain's cost is its launches; inside a
+click it is part of the click's captured CUDA graph (``engine.graphs``). The
+restarts are a leading tensor dimension, the Lloyd iterations and the K-1
+seeding picks are the only Python loops, and nothing in them reads a value
+back to the host, which capture forbids: the degenerate-mass and
+empty-cluster branches are ``torch.where``, the winning restart is gathered
+by a device index.
 """
 
 from __future__ import annotations
@@ -119,8 +122,11 @@ def weighted_kmeans(points: torch.Tensor, weights: torch.Tensor,
     w = weights.to(torch.float32)
     c0 = _kmeanspp_init(pts, w, generator, K, n_init)
     centers_all, mass_all, inertia_all = _lloyd(pts, w, c0, K, iters)
-    best = inertia_all.argmin()
-    centers, mass = centers_all[best], mass_all[best]
+    # a gather by a device index: indexing with the 0-d tensor itself would
+    # read it back to the host, which also forbids capture in a CUDA graph
+    best = inertia_all.argmin().reshape(1)
+    centers = centers_all.index_select(0, best)[0]
+    mass = mass_all.index_select(0, best)[0]
     order = torch.argsort(-mass, stable=True)
     return centers[order], mass[order] / w.sum()
 

@@ -145,6 +145,159 @@ def test_load_image_decodes_file_like_load_image_array(tmp_path):
     assert np.array_equal(a.get_img_gray_fullres(), b.get_img_gray_fullres())
 
 
+def _dense_hints():
+    ab = np.zeros((2, XD, XD), np.float32)
+    mask = np.zeros((1, XD, XD), np.float32)
+    for h in _hints(5, 12):
+        put_point(ab, mask, [max(h["y"], 3), max(h["x"], 3)], 3, h["ab"])
+    return ab, mask
+
+
+def test_fullres_getters_async_equal_sync_and_match_jax():
+    """net_forward_fullres is net_forward then get_img_fullres; the async
+    forms return a function that gives the same frame, byte for byte, and
+    owns it: loading another image before calling it changes nothing.
+    Against the JAX class: <= 1 LSB on < 1% of the pixels, the session
+    test's bar."""
+    jm = japi.ColorizeImageJax(Xd=XD)
+    jm.prep_net(path=STUDENT)
+    tm = ColorizeImageTorch(Xd=XD, device="cpu")
+    tm.prep_net(path=STUDENT)
+    ab, mask = _dense_hints()
+    for m in (jm, tm):
+        m.load_image_array(_image(3, 150, 97))
+    want = jm.net_forward_fullres(ab, mask)
+    got = tm.net_forward_fullres(ab, mask)
+    assert got.shape == want.shape == (150, 97, 3) and got.dtype == np.uint8
+    d = np.abs(got.astype(int) - want.astype(int)).max(-1)
+    assert d.max() <= 1 and np.mean(d != 0) < 0.01
+    tm.net_forward(ab, mask)
+    assert np.array_equal(tm.get_img_fullres(), got)
+    assert np.abs(tm.get_img_forward().astype(int)
+                  - jm.get_img_forward().astype(int)).max() <= 1
+    finish = tm.get_img_fullres_async()
+    finish2 = tm.net_forward_fullres_async(ab, mask)
+    tm.load_image_array(_image(8, 40, 60))       # the state moves on
+    assert np.array_equal(finish(), got)
+    assert np.array_equal(finish2(), got)
+
+
+def test_async_getters_sentinels_match_jax():
+    """-1 for an unset image or net, and for a dist backend, which has no
+    dense click program (``_dispatch_click`` gives None)."""
+    from ideepcolor_tpu_torch.api import ColorizeImageTorchDist
+    ab, mask = _dense_hints()
+    for cls, dcls, kw in (
+            (japi.ColorizeImageJax, japi.ColorizeImageJaxDist, {}),
+            (ColorizeImageTorch, ColorizeImageTorchDist, {"device": "cpu"})):
+        m = cls(Xd=XD, **kw)
+        assert m.net_forward_fullres(ab, mask) == -1
+        assert m.net_forward_fullres_async(ab, mask) == -1
+        m.set_image(_image(6, XD, XD))
+        assert m.net_forward_fullres_async(ab, mask) == -1      # no net
+        d = dcls(Xd=XD, **kw)
+        d.prep_net(path=STUDENT)
+        d.set_image(_image(6, XD, XD))
+        assert d._dispatch_click() is None
+        assert d.net_forward_fullres_async(ab, mask) == -1
+        assert d.net_forward_fullres(ab, mask) == -1
+
+
+def test_cpu_programs_are_plain_functions_and_reach_no_graph_code(
+        monkeypatch):
+    """On the CPU every program of the API is the plain function its
+    factory wraps: no GraphProgram, no TableStage, no pinned memory, no
+    CUDA call. A session runs with all of them made to raise."""
+    from ideepcolor_tpu_torch.api import ColorizeImageTorchDist
+    from ideepcolor_tpu_torch.engine import graphs
+
+    def boom(*a, **k):
+        raise AssertionError("graph code reached on the CPU")
+
+    for name in ("GraphProgram", "TableStage"):
+        monkeypatch.setattr(getattr(graphs, name), "__init__", boom)
+    for name in ("CUDAGraph", "Stream", "Event", "current_stream"):
+        monkeypatch.setattr(torch.cuda, name, boom)
+    m = ColorizeImageTorch(Xd=XD, device="cpu")
+    m.prep_net(path=STUDENT)
+    d = ColorizeImageTorchDist(Xd=XD, device="cpu")
+    d.prep_net(path=STUDENT)
+    for prog in (m._click, m._click_tbl, m._click_tbl_win,
+                 m._click_tbl_win_suggest, d._predict_tbl,
+                 d.ensure_suggest_program(3, 1000)):
+        assert not isinstance(prog, graphs.GraphProgram)
+        assert callable(prog) and not hasattr(prog, "replays")
+    assert graphs.program(len, "cpu") is len and graphs.program(len) is len
+    im = _image(5, XD, XD)
+    m.set_image(im)
+    d.set_image(im)
+    table = points_json_to_table(_hints(4, 3), XD)
+    assert d.predict_dist_table(*table) == 0
+    assert m.net_forward_table(*table).shape == (XD, XD, 3)
+    rh = np.eye(XD, dtype=np.float32)
+    out = m.net_forward_table_win_suggest(
+        *table, np.full((XD, XD, 1), 50, np.float32), rh, rh, d, 10, 20,
+        K=3, N=1000)
+    assert out[0].shape == (XD, XD, 3) and out[1].shape == (4, 3)
+    assert d.suggest_table(*table, 10, 20, K=3, N=1000)[0].shape == (3, 3)
+    assert m.net_forward_fullres(*_dense_hints()).shape == (XD, XD, 3)
+    assert m._stage is None and d._stage is None
+
+
+def test_table_stage_packing_and_program_signatures():
+    """What surrounds a captured program, in Python the CPU reaches: the
+    staging buffer's layout (boxes, values, then count and pixel; a short
+    table padded with dead slots over stale bytes; the count clamped to the
+    table's rows), and the signature a graph is keyed by."""
+    from ideepcolor_tpu_torch.engine import graphs
+    slots = 8
+    row = np.full(slots * 24 + 16, 0xAB, np.uint8)         # stale bytes
+    boxes = np.arange(12, dtype=np.int32).reshape(3, 4)
+    values = np.linspace(-5, 5, 6, dtype=np.float32).reshape(3, 2)
+    graphs.pack_table(row, slots, boxes, values, 7, 11, 13)
+    got_b = row[:slots * 16].view(np.int32).reshape(slots, 4)
+    got_v = row[slots * 16:slots * 24].view(np.float32).reshape(slots, 2)
+    assert np.array_equal(got_b[:3], boxes) and not got_b[3:].any()
+    assert np.array_equal(got_v[:3], values) and not got_v[3:].any()
+    assert row[slots * 24:].view(np.int32).tolist() == [3, 11, 13, 0]
+    graphs.pack_table(row, slots, boxes, values, -2)
+    assert row[slots * 24:].view(np.int32).tolist() == [0, 0, 0, 0]
+    with pytest.raises(ValueError, match="at most 8"):
+        graphs.pack_table(row, slots, np.zeros((9, 4)), np.zeros((9, 2)), 1)
+    with pytest.raises(ValueError):
+        graphs.pack_table(row, slots, boxes, values[:2], 1)
+    t = torch.zeros(2, 3)
+    gen = torch.Generator()
+    assert graphs._signature(t) == ((2, 3), torch.float32)
+    assert graphs._signature(graphs.Fixed(t))[:2] == ("fixed", t.data_ptr())
+    assert graphs._signature(gen) == ("generator", id(gen))
+    with pytest.raises(TypeError, match="by keyword"):
+        graphs._signature(3)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        graphs.GraphProgram(lambda x: x)(t)
+
+
+def test_suggest_program_cache_is_bounded_fifo():
+    """The JAX class's bound: at most 8 suggest programs, the oldest goes
+    first; out-of-range K and N raise ValueError before anything is made."""
+    from ideepcolor_tpu_torch.api import ColorizeImageTorchDist
+    d = ColorizeImageTorchDist(Xd=XD, device="cpu")
+    d.prep_net(path=STUDENT)
+    jd = japi.ColorizeImageJaxDist
+    assert (d._SUGGEST_CACHE_MAX, d.MAX_SUGGEST_K, d.MAX_SUGGEST_N) == (
+        jd._SUGGEST_CACHE_MAX, jd.MAX_SUGGEST_K, jd.MAX_SUGGEST_N)
+    first = d.ensure_suggest_program(1, 1000)
+    assert d.ensure_suggest_program(1, 1000) is first
+    for k in range(2, 10):
+        d.ensure_suggest_program(k, 1000)
+    assert len(d._suggest_tbl_cache) == 8
+    assert (1, 1000) not in d._suggest_tbl_cache
+    assert list(d._suggest_tbl_cache)[0] == (2, 1000)
+    for K, N in ((0, 1000), (26, 1000), (5, 999), (5, 100_001)):
+        with pytest.raises(ValueError):
+            d.ensure_suggest_program(K, N)
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a usable CUDA device, an entry point that did not ask for
     the CPU raises instead of running there."""
@@ -168,9 +321,10 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax' or "
         "k.startswith(('jaxlib', 'ideepcolor_tpu.')) or "
         "k == 'ideepcolor_tpu')\n"
-        "assert len(names) >= 22, names\n"
+        "assert len(names) >= 26, names\n"
         "new = {'data.color_bins', 'data.lab_gamut', 'ops.quantize', "
-        "'ops.kmeans', 'ops.gamut'}\n"
+        "'ops.kmeans', 'ops.gamut', 'engine.graphs', 'engine.interactive', "
+        "'engine.streaming', 'engine.batch'}\n"
         "assert {'ideepcolor_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")

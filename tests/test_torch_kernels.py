@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ideepcolor_tpu.engine import pipeline as jP
@@ -237,13 +238,91 @@ class _OnCuda:
         return getattr(self._t, name)
 
 
+@pytest.mark.parametrize("N,size,counts", [
+    (1, 64, [9]), (3, 32, [0, 40, 256]), (8, 48, [0, 1, 5, 60, 255, 256,
+                                                   300, -2])])
+def test_k1_batch_plain_bitexact_vs_jax_vmap(N, size, counts):
+    """The batched entry's plain version (and so the wrapper on CPU tensors)
+    against ``jax.vmap(rasterize_hints)``, the batch engine's rasterize in
+    the JAX package: bit-exact, counts past M and below 0 included."""
+    tabs = [_table(20 + i, counts[i], size, 9, edge=True) for i in range(N)]
+    boxes = np.stack([t[0] for t in tabs])
+    vals = np.stack([t[1] for t in tabs])
+    cnt = np.asarray(counts, np.int32)
+    got = thk.rasterize_hints_batch(torch.from_numpy(boxes),
+                                    torch.from_numpy(vals),
+                                    torch.from_numpy(cnt), size)
+    assert got.shape == (N, 3, size, size) and got.dtype == torch.float32
+    ab_j, m_j = jax.vmap(
+        lambda b, v, c: jhints.rasterize_hints(b, v, c, size=size))(
+        jnp.asarray(boxes), jnp.asarray(vals), jnp.asarray(cnt))
+    assert np.array_equal(got[:, :2].permute(0, 2, 3, 1).numpy(),
+                          np.asarray(ab_j))
+    assert np.array_equal(got[:, 2:].permute(0, 2, 3, 1).numpy(),
+                          np.asarray(m_j))
+    assert torch.equal(got, thk.rasterize_hints_batch_plain(
+        torch.from_numpy(boxes), torch.from_numpy(vals),
+        torch.from_numpy(cnt), size))
+
+
+@pytest.mark.parametrize("n", [0, 7, 256])
+def test_k1_count_as_tensor_equals_count_as_int(n):
+    """A captured program hands K1 its count as a one-element int32
+    tensor; on the CPU that is the plain version with the same result."""
+    boxes, vals, _ = _table(31, n, 64)
+    b, v = torch.from_numpy(boxes), torch.from_numpy(vals)
+    want = thk.rasterize_hints_planar(b, v, n, 64)
+    got = thk.rasterize_hints_planar(b, v, torch.tensor([n],
+                                                        dtype=torch.int32), 64)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("N,H,W", [(1, 5, 7), (4, 32, 32), (3, 33, 17)])
+def test_k2_batch_plain_vs_jax_batched_compose(N, H, W):
+    """The batched compose on the CPU against ``lab_to_rgb_u8`` of the
+    (N,H,W,3) Lab batch, what the JAX batch engine composes with: <= 1 LSB
+    on < 1e-3 of the values; each frame equals the single-frame entry's."""
+    rng = np.random.default_rng(N * H * W)
+    l = rng.uniform(0, 100, (N, 1, H, W)).astype(np.float32)
+    ab = rng.uniform(-110, 110, (N, 2, H, W)).astype(np.float32)
+    lt, abt = torch.from_numpy(l), torch.from_numpy(ab)
+    got = tck.lab_to_rgb_u8_batch(lt[:, 0], abt[:, 0], abt[:, 1])
+    assert got.shape == (N, H, W, 3) and got.dtype == torch.uint8
+    want = np.asarray(jcs.lab_to_rgb_u8(jnp.asarray(
+        np.concatenate([l, ab], 1).transpose(0, 2, 3, 1))))
+    worst, share = _lsb(got.numpy(), want)
+    assert worst <= 1 and share < 1e-3
+    for i in range(N):
+        assert torch.equal(got[i], tck.lab_to_rgb_u8_hwc(
+            lt[i, 0], abt[i, 0], abt[i, 1]))
+
+
+def test_k2_batch_load_modes_follow_the_batch_stride():
+    """float4 loads of a batch need every frame's plane to start on 16
+    bytes relative to the output's flat index: a batch stride that drifts
+    from H * W by a multiple of 4 elements."""
+    V, A, Z = tck.VEC, tck.ANY, tck.ZERO
+    N, H, W = 3, 6, 8
+    l = torch.rand(N, 1, H, W)
+    ab = torch.rand(N, 2, H, W)                   # batch stride 2 * H * W
+    assert tck.load_modes(l[:, 0], ab[:, 0], ab[:, 1]) == (V, V)
+    hwc = torch.rand(N, H, W, 2)
+    assert tck.load_modes(l[:, 0], hwc[..., 0], hwc[..., 1]) == (V, A)
+    zero = torch.zeros(()).expand(N, H, W)
+    assert tck.load_modes(l[:, 0], zero, zero) == (V, Z)
+    odd = torch.rand(N, 2, 5, 6)                  # H * W = 30: drift 30
+    assert tck.load_modes(odd[:, 0], odd[:, 0], odd[:, 1]) == (A, A)
+    flat = torch.rand(N, 5, 6)                    # drift 0 whatever H * W
+    assert tck.load_modes(flat, flat, flat) == (V, V)
+
+
 def test_wrappers_raise_on_cuda_without_kernel(monkeypatch):
     """On a CUDA tensor a wrapper launches its kernel or raises; with no
     toolkit to build the kernel it raises instead of returning the plain
     result."""
     monkeypatch.setattr(build, "_nvcc", lambda: (_ for _ in ()).throw(
         RuntimeError("no nvcc")))
-    for k in (thk.KERNEL, tck.KERNEL, tck.KERNEL_AB):
+    for k in build.KERNELS:
         monkeypatch.setattr(k, "_fn", None)
         monkeypatch.setattr(k, "library_path",
                             lambda: build.BUILD_DIR / "missing.so")
@@ -258,6 +337,15 @@ def test_wrappers_raise_on_cuda_without_kernel(monkeypatch):
         tck.lab_to_rgb_u8_hwc(plane, plane, plane)
     with pytest.raises(RuntimeError, match="nvcc"):
         tck.lab_to_rgb_u8_ab(plane, plane, plane)
+    planes = _OnCuda(torch.zeros(2, 4, 4))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tck.lab_to_rgb_u8_batch(planes, planes, planes)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        thk.rasterize_hints_batch(
+            _OnCuda(torch.from_numpy(boxes)[None]),
+            _OnCuda(torch.from_numpy(vals)[None]),
+            _OnCuda(torch.zeros(1, dtype=torch.int32)), 16)
+    assert thk.KERNEL_BATCH.launches == tck.KERNEL_BATCH.launches == 0
     assert (thk.KERNEL.launches, tck.KERNEL.launches,
             tck.KERNEL_AB.launches) == before
 
@@ -289,3 +377,17 @@ def test_wrappers_reject_bad_inputs_before_launch():
     with pytest.raises(ValueError, match="size"):
         thk.rasterize_hints_planar(cuda(torch.zeros(4, 4, dtype=torch.int32)),
                                    cuda(torch.zeros(4, 2)), 1, 30000)
+    with pytest.raises(ValueError, match=r"\(N, H, W\) planes"):
+        p = cuda(torch.zeros(4, 4))
+        tck.lab_to_rgb_u8_batch(p, p, p)
+    b3 = cuda(torch.zeros(2, 4, 4, dtype=torch.int32))
+    v3 = cuda(torch.zeros(2, 4, 2))
+    with pytest.raises(ValueError, match="counts"):
+        thk.rasterize_hints_batch(b3, v3, cuda(torch.zeros(2)), 8)
+    with pytest.raises(ValueError, match="counts"):
+        thk.rasterize_hints_batch(
+            b3, v3, cuda(torch.zeros(3, dtype=torch.int32)), 8)
+    with pytest.raises(ValueError, match=r"\(N,M,4\)"):
+        thk.rasterize_hints_batch(
+            b3, cuda(torch.zeros(2, 5, 2)),
+            cuda(torch.zeros(2, dtype=torch.int32)), 8)
