@@ -99,11 +99,36 @@ or more each; any failure exits non-zero:
    table clicks and stream_window_u8 at T=8 against the per-frame step, by
    frame_delta_stats within TF32_BOUND; every K1 and K2 entry, the two
    batched ones included, must have launched on the engines' path;
-11. one JSON line listing each kernel entry with its launches on the three
+11. the Caffe family, the fourth path, with launch counts of its own: the
+   three graphs at their one width, Xd=256, with weights made from a seed
+   with numpy (``init_state_dict(calibrate=True)``) and loaded through
+   ``prep_net`` from a ``.caffemodel`` the run writes itself (main), a
+   ``.pth`` (global) and a JAX-layout ``.npz`` (dist). Main: a dense click
+   with no hint, table clicks that add hints, a window click, the full-res
+   and mask getters. Global: ``global_stats.extract`` on a second image,
+   ``net_forward`` with ``glob_dist=-1`` (equal to an all-zero blob) and
+   with the histogram (another frame), ``demo_global_histogram`` on arrays.
+   Dist: ``net_forward``, ``predict_dist_table``, ``get_ab_reccs``,
+   ``suggest_table`` (K=9), ``compute_entropy``; the (256,256,313) map
+   finite with rows summing to 1, ``dist_ab_full`` 529 with zeros outside
+   the hull, confidences sorted and summing to 1. ``colorize_batch_global``
+   at N=8 against eight ``net_forward`` calls, ``suggest_batch_table`` at
+   N=8 by its contract. K1's device-count entry and K2's compose, fused and
+   batched entries must launch. A CPU twin of the main, global and dist
+   clicks (fewer clicks) holds the frames, ``output_ab`` and the map to the
+   CAFFE_* bounds below. A second set of models, captured with cuDNN's
+   deterministic kernels, holds each Caffe click against the plain function
+   it was captured from (frames, ``output_ab``, hint planes byte-equal, map
+   within 1e-5) and ``net_forward_fullres`` against the two-step form byte
+   for byte. Timed, for information: the main, global and dist clicks and
+   ``predict_dist_table`` (p50 / p95 on the host clock, device kernels and
+   host launches per click, where the dist click's device time goes), one
+   captured bf16 main click against f32, and the run's peak device memory;
+12. one JSON line listing each kernel entry with its launches on the four
    paths, its error against the plain version, its time, the plain
    version's, its bound and what sets it, and the shape and plane layout
    those numbers were measured at;
-12. last line: {"ok": true, "device": {...}}.
+13. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -116,9 +141,11 @@ PyTorch call computes either function, so ``library_ms`` is null.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -148,6 +175,19 @@ BINS_MOVED_BOUND = 5         # of 25000 samples: f32 cumsum order differs
 # TF32 runs of other batch sizes, whose convs take other kernels
 BF16_BOUND = dict(max_lsb=40, equal=0.55, psnr=48.0, dab=8.0, map=5e-3)
 TF32_BOUND = dict(max_lsb=3, equal=0.95, psnr=60.0, dab=2.5, map=5e-4)
+# the Caffe path, card vs its CPU twin: frames (LSB per channel, share of a
+# frame's pixels), output_ab where the frames agree, the (256,256,313) map
+# (MAP_BOUND). The share is not the main path's 1e-3: the seeded nets carry
+# the convs' last-bit differences to ab at a few 1e-3 of its range (also
+# between the port and JAX on one CPU), a uint8 step is about 0.4 ab, and
+# 1 LSB on 4.20e-3 and 4.14e-3 of a frame's pixels was measured on an H100
+# in two runs (output_ab 1.18e-4, maps 5.65e-6). The same bound holds a
+# batch of 8 against eight single forwards (measured 1.08e-3)
+CAFFE_FRAME_BOUND_LSB = 1
+CAFFE_FRAME_BOUND_SHARE = 1e-2
+CAFFE_AB_BOUND = 1e-3
+CAFFE_CPU_CLICKS = 2         # table clicks of the CPU twin
+CAFFE_SEED = 21              # of the three seeded weight sets
 
 
 def die(msg: str) -> None:
@@ -578,6 +618,22 @@ def main() -> int:
           f"each, stride-3 planes of a (K,3) Lab tensor ({sorted(pal_modes)}):"
           f" {pal_off} of {pal_values} values off the plain version, max "
           f"{pal_worst} LSB")
+    # suggest_batch_table's palettes: one (B, K) image, stride-3 planes of
+    # a (B, K, 3) Lab tensor
+    lab = torch.from_numpy(np.concatenate(
+        [rng.uniform(0, 100, (8, SUGGEST_K, 1)),
+         rng.uniform(-110, 110, (8, SUGGEST_K, 2))], -1).astype(
+             np.float32)).to(dev)
+    planes = tuple(lab[..., c] for c in range(3))
+    w, s = lsb(k2.lab_to_rgb_u8_hwc(*planes), k2.lab_to_rgb_u8_plain(*planes))
+    if w > K2_BAR[0]:
+        die(f"K2 at the 8 x {SUGGEST_K} batch palette: {w} LSB")
+    worst = max(worst[0], w), worst[1]
+    ms = device_ms(lambda: k2.lab_to_rgb_u8_hwc(*planes))
+    p_ms = device_ms(lambda: k2.lab_to_rgb_u8_plain(*planes))
+    print(f"K2 8 x {SUGGEST_K} batch palette ({k2.load_modes(*planes)}): {w} "
+          f"LSB on {int(s * 8 * SUGGEST_K * 3)} of {8 * SUGGEST_K * 3} "
+          f"values; kernel {ms:.5f} ms, plain {p_ms:.5f} ms")
     # the batched entry: the batch engine's (N,1,S,S) L and (N,2,S,S)
     # prediction, channel-last ab, and an odd size whose frames do not start
     # on 4 pixels
@@ -1505,7 +1561,457 @@ def main() -> int:
           f"streaming step: max {w_lsb} LSB, {w_equal:.5f} equal; engines' "
           f"path launches {engine_launches}")
 
-    # 11. the kernels line
+    # 11. the Caffe family: the fourth path. Weights from a seed with numpy,
+    # written once in the three formats prep_net takes and read back from
+    # the files by the card's models and the CPU twin's alike
+    from ideepcolor_tpu_torch.api import (ColorizeImageTorchCaffe,
+                                          ColorizeImageTorchCaffeDist,
+                                          ColorizeImageTorchCaffeGlobDist)
+    from ideepcolor_tpu_torch.apps import demos
+    from ideepcolor_tpu_torch.models import caffe_net, caffemodel_io
+    from ideepcolor_tpu_torch.models import global_stats
+    from ideepcolor_tpu_torch.models import layers as wl
+
+    tmp = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    sds = {v: caffe_net.init_state_dict(v, seed=CAFFE_SEED, calibrate=True)
+           for v in caffe_net.VARIANTS}
+    blobs = {}
+    for key, value in sds["main"].items():
+        name, field = key.split(".")
+        slot = blobs.setdefault(name, {})
+        slot[field] = value.numpy().reshape(value.shape or (1,))
+    caffe_layers = {}
+    for name, f in blobs.items():
+        if "weight" in f:
+            caffe_layers[name] = [f["weight"], f["bias"]]
+        elif "mean" in f:       # BatchNorm: (sum, sumsq, count), count 2
+            caffe_layers[name] = [f["mean"] * 2, f["var"] * 2,
+                                  np.full(1, 2.0, np.float32)]
+        else:
+            caffe_layers[name] = [f["scale"]]
+    wpath = {"main": os.path.join(tmp.name, "main.caffemodel"),
+             "global": os.path.join(tmp.name, "global.pth"),
+             "dist": os.path.join(tmp.name, "dist.npz")}
+    with open(wpath["main"], "wb") as f:
+        f.write(caffemodel_io.encode_caffemodel(caffe_layers))
+    torch.save(sds["global"], wpath["global"])
+    kinds = {c[0]: c[5] for c in caffe_net._convs_for("dist")}
+    np.savez(wpath["dist"], **{
+        k: ((wl.torch_convT_to_hwio(v.numpy())
+             if kinds[k.split(".")[0]] == "deconv"
+             else wl.torch_conv_to_hwio(v.numpy())) if v.dim() == 4
+            else v.numpy()) for k, v in sds["dist"].items()})
+    n_params = {v: sum(t.numel() for k, t in sd.items()
+                       if k.endswith((".weight", ".bias"))) / 1e6
+                for v, sd in sds.items()}
+    print(f"Caffe weights: three variants from seed {CAFFE_SEED} "
+          f"(calibrated BatchNorm statistics; conv parameters in millions "
+          f"{ {v: round(n, 3) for v, n in n_params.items()} }), written as "
+          f".caffemodel "
+          f"({os.path.getsize(wpath['main']) / 1e6:.1f} MB), .pth and "
+          f"JAX-layout .npz in {time.perf_counter() - t0:.1f} s")
+
+    ref_im = image(6, S, S)
+    zero_hints = (np.zeros((2, S, S), np.float32),
+                  np.zeros((1, S, S), np.float32))
+    dense_ab, dense_mask = (a.copy() for a in zero_hints)
+    for hint in session_hints(6, seed=8):
+        hints.put_point(dense_ab, dense_mask,
+                        [min(max(hint["y"], 4), S - 5),
+                         min(max(hint["x"], 4), S - 5)], 4, hint["ab"])
+
+    def caffe_models(device, dtype=None):
+        cm_ = ColorizeImageTorchCaffe(Xd=S, device=device)
+        cm_.prep_net(0, caffemodel_path=wpath["main"], dtype=dtype)
+        cg_ = ColorizeImageTorchCaffeGlobDist(Xd=S, device=device)
+        cg_.prep_net(0, caffemodel_path=wpath["global"], dtype=dtype)
+        cd_ = ColorizeImageTorchCaffeDist(Xd=S, device=device)
+        cd_.prep_net(0, caffemodel_path=wpath["dist"], dtype=dtype)
+        im_ = image(5, *FULLRES_HW)
+        cm_.load_image_array(im_)
+        cg_.load_image_array(im_)
+        cd_.set_image(cm_.img_rgb)
+        return cm_, cg_, cd_
+
+    mem_marks = []
+
+    def mem_mark(label):
+        """On the card's run: the peak allocation since the last mark."""
+        mem_marks.append(
+            f"{label} {torch.cuda.max_memory_allocated() / 2**30:.3f}")
+        torch.cuda.reset_peak_memory_stats()
+
+    def caffe_session(device, n_clicks, whole):
+        """The three backends' clicks; ``whole`` adds what only the card's
+        run drives (window click, getters, suggestions, demo)."""
+        mark = mem_mark if whole else (lambda label: None)
+        cm_, cg_, cd_ = caffe_models(device)
+        out = {}
+        mark("models loaded")
+        out["main_dense0"] = cm_.net_forward(*zero_hints)
+        out["ab_main_dense0"] = cm_.output_ab
+        for i in range(1, n_clicks + 1):
+            out[f"main_click{i}"] = cm_.net_forward_table(*tables[i])
+            out[f"ab_main_click{i}"] = cm_.output_ab
+        mark("main clicks")
+        glob = global_stats.extract(
+            cg_._to_dev(ref_im).to(torch.float32) / 255.0)["glob_ab_313"]
+        out["glob"] = glob.cpu().numpy()
+        out["glob_none"] = cg_.net_forward(*zero_hints, -1)
+        out["ab_glob_none"] = cg_.output_ab
+        out["glob_ref"] = cg_.net_forward(*zero_hints, out["glob"])
+        out["ab_glob_ref"] = cg_.output_ab
+        mark("global clicks")
+        out["dist_dense"] = cd_.net_forward(dense_ab, dense_mask)
+        mark("dist click")
+        out["ab_dist_dense"] = cd_.output_ab
+        out["map_dense"] = cd_._dev_dist.cpu().numpy()
+        if cd_.predict_dist_table(*tables[n_clicks]) != 0:
+            die("Caffe path: predict_dist_table failed")
+        out["map_table"] = cd_._dev_dist.cpu().numpy()
+        mark("predict_dist_table")
+        if not whole:
+            return (cm_, cg_, cd_), out
+        res = cm_.net_forward_table_win(*tables[n_clicks], *window)
+        if isinstance(res, int):
+            die(f"Caffe path: the window click returned {res}")
+        out["main_win"] = res
+        out["main_win_net"] = cm_.output_rgb
+        out["main_fullres"] = cm_.get_img_fullres()
+        out["main_mask_fullres"] = cm_.get_img_mask_fullres()
+        out["main_mask"] = cm_.get_img_mask()
+        h_, w_ = clicks[n_clicks - 1]["y"], clicks[n_clicks - 1]["x"]
+        out["reccs"] = cd_.get_ab_reccs(h_, w_, K=SUGGEST_K,
+                                        return_conf=True)
+        out["palette"] = cd_.suggest_table(*tables[n_clicks], h_, w_,
+                                           K=SUGGEST_K)
+        out["map_suggest"] = cd_._dev_dist.cpu().numpy()
+        mark("window click, getters, suggest_table")
+        cd_.compute_entropy()
+        out["entropy"] = cd_.dist_entropy
+        out["dist_ab_full"] = cd_.dist_ab_full
+        out["in_hull"] = cd_.in_hull
+        out["demo"] = demos.demo_global_histogram(
+            image(5, *FULLRES_HW), ref_im, weights=wpath["global"], Xd=S,
+            device=device)
+        out["glob_fullres"] = cg_.get_img_fullres()
+        mark("entropy, demo")
+        # the batch forms: N = 8 images, row 0 without a histogram
+        globs = np.zeros((8, 314), np.float32)
+        globs[1:, :313] = np.stack([np.roll(out["glob"], 11 * i)
+                                    for i in range(1, 8)])
+        globs[1:, 313] = 1.0
+        out["globs"] = globs
+        out["batch_global"] = B.colorize_batch_global(cg_.net, imgs, globs,
+                                                      device=device)
+        mark("colorize_batch_global N=8")
+        out["batch_suggest"] = B.suggest_batch_table(
+            m.net, imgs, bx, vl, ct, [c["y"] for c in clicks[:8]],
+            [c["x"] for c in clicks[:8]], K=SUGGEST_K, seed=3,
+            device=device)
+        mark("suggest_batch_table N=8")
+        return (cm_, cg_, cd_), out
+
+    caffe_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
+                     k2.KERNEL_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    for k in entries:
+        k.launches = 0
+    t0 = time.perf_counter()
+    (cfm, cfg, cfd), cgpu = caffe_session(None, len(clicks), True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    caffe_launches = {k.name: k.launches for k in entries}
+    print(f"Caffe path on the card: {wall:.2f} s, launches {caffe_launches}")
+    for k in caffe_entries:
+        if caffe_launches[k.name] == 0:
+            die(f"kernel {k.name} was not launched on the Caffe path")
+    print(f"device memory: {mem_before / 2**30:.3f} GiB allocated by the "
+          f"earlier phases' models and graphs when the Caffe path began, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB held after it "
+          f"({torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved); "
+          f"peak GiB allocated by step: " + "; ".join(mem_marks))
+
+    # what came out
+    for key, val in cgpu.items():
+        if isinstance(val, np.ndarray) and val.dtype != bool and \
+                not np.isfinite(val).all():
+            die(f"Caffe path: {key} is not finite")
+    for key in ("main_dense0", f"main_click{len(clicks)}", "glob_none",
+                "glob_ref", "dist_dense", "main_win_net", "main_mask"):
+        if cgpu[key].shape != (S, S, 3) or cgpu[key].dtype != np.uint8:
+            die(f"Caffe path: {key} is {cgpu[key].shape} {cgpu[key].dtype}")
+    for key in ("main_fullres", "main_mask_fullres", "glob_fullres"):
+        if cgpu[key].shape != FULLRES_HW + (3,):
+            die(f"Caffe path: {key} is {cgpu[key].shape}")
+    if cgpu["main_win"].shape != (WIN, WIN, 3):
+        die(f"Caffe path: the window frame is {cgpu['main_win'].shape}")
+    if np.array_equal(cgpu["main_dense0"], cgpu[f"main_click{len(clicks)}"]):
+        die("Caffe path: ten hints did not change the main frame")
+    if not np.array_equal(cgpu["main_win_net"],
+                          cgpu[f"main_click{len(clicks)}"]):
+        d = np.abs(cgpu["main_win_net"].astype(int)
+                   - cgpu[f"main_click{len(clicks)}"].astype(int)).max(-1)
+        if d.max() > CAFFE_FRAME_BOUND_LSB or \
+                np.mean(d != 0) >= CAFFE_FRAME_BOUND_SHARE:
+            die(f"Caffe path: the window click's net frame is {d.max()} LSB "
+                f"on {np.mean(d != 0):.2e} of the pixels from the table "
+                f"click's")
+    glob_moved = float(np.mean((cgpu["glob_none"] != cgpu["glob_ref"])
+                               .any(-1)))
+    if glob_moved < 0.5:
+        die(f"Caffe path: the histogram changed only {glob_moved:.3f} of "
+            f"the global frame's pixels")
+    if abs(float(cgpu["glob"].sum()) - 1) > 1e-5 or cgpu["glob"].shape != \
+            (313,):
+        die("global_stats.extract: the histogram does not sum to 1")
+    for key in ("map_dense", "map_table", "map_suggest"):
+        cmap = cgpu[key]
+        if cmap.shape != (S, S, 313):
+            die(f"Caffe path: {key} is {cmap.shape}")
+        if np.abs(cmap.sum(-1) - 1).max() > 1e-4:
+            die(f"Caffe path: {key}'s rows sum to 1 within "
+                f"{np.abs(cmap.sum(-1) - 1).max():.2e} only")
+    full = cgpu["dist_ab_full"]
+    if full.shape != (529, S, S) or full[~cgpu["in_hull"]].any() or \
+            not np.array_equal(full[cgpu["in_hull"]],
+                               cgpu["map_suggest"].transpose(2, 0, 1)):
+        die("Caffe path: dist_ab_full is not the map scattered into the 529 "
+            "grid with zeros outside the hull")
+    centers, conf = cgpu["reccs"]
+    colors_u8, pal_conf = cgpu["palette"]
+    bs_colors, bs_conf = cgpu["batch_suggest"]
+    if colors_u8.shape != (SUGGEST_K, 3) or colors_u8.dtype != np.uint8:
+        die(f"Caffe suggest_table: colors are {colors_u8.shape}")
+    if bs_colors.shape != (8, SUGGEST_K, 3) or bs_colors.dtype != np.uint8:
+        die(f"suggest_batch_table: colors are {bs_colors.shape}")
+    for name, c in (("get_ab_reccs", conf[None]),
+                    ("suggest_table", pal_conf[None]),
+                    ("suggest_batch_table", bs_conf)):
+        if (c.shape[1] != SUGGEST_K or np.abs(c.sum(1) - 1).max() > 1e-5
+                or (np.diff(c, axis=1) > 0).any()):
+            die(f"Caffe path, {name}: confidences {c} do not sum to 1 "
+                f"within 1e-5, or are not sorted")
+    if centers.shape != (SUGGEST_K, 2) or np.abs(centers).max() > 110:
+        die(f"Caffe get_ab_reccs: centers {centers.shape} leave [-110, 110]")
+    if cgpu["entropy"].shape != (S, S) or (cgpu["entropy"] > 0).any():
+        die("Caffe compute_entropy: not (Xd, Xd) or positive")
+    demo = cgpu["demo"]
+    if (demo["auto"].shape != FULLRES_HW + (3,)
+            or np.array_equal(demo["auto"], demo["with_ref"])
+            or np.abs(demo["glob_dist"] - cgpu["glob"]).max() > 1e-6):
+        die("demo_global_histogram: wrong shapes, the reference changed "
+            "nothing, or its histogram is not global_stats.extract's")
+    d = np.abs(demo["with_ref"].astype(int)
+               - cgpu["glob_fullres"].astype(int)).max(-1)
+    if d.max() > CAFFE_FRAME_BOUND_LSB or \
+            np.mean(d != 0) >= CAFFE_FRAME_BOUND_SHARE:
+        die(f"demo_global_histogram: its frame is {d.max()} LSB on "
+            f"{np.mean(d != 0):.2e} of the pixels from the session's")
+    # the batch form against eight net_forward calls (after the counts)
+    b_worst, b_share = 0, 0.0
+    for i in range(8):
+        cfg.set_image(imgs[i])
+        want = cfg.net_forward(*zero_hints,
+                               -1 if i == 0 else cgpu["globs"][i, :313])
+        d = np.abs(cgpu["batch_global"][i].astype(int)
+                   - want.astype(int)).max(-1)
+        b_worst = max(b_worst, int(d.max()))
+        b_share = max(b_share, float(np.mean(d != 0)))
+    cfg.load_image_array(image(5, *FULLRES_HW))
+    ab_span = np.percentile(np.abs(cgpu["ab_main_dense0"]), [10, 50, 90])
+    print(f"Caffe path checks: frames finite and of the expected shapes; "
+          f"main output |ab| at the 10th/50th/90th percentile "
+          f"{ab_span[0]:.1f}/{ab_span[1]:.1f}/{ab_span[2]:.1f} (tanh not "
+          f"saturated); the histogram changed {glob_moved:.3f} of the "
+          f"global frame's pixels; maps ({S},{S},313) with rows summing to "
+          f"1 within {np.abs(cgpu['map_dense'].sum(-1) - 1).max():.2e}, "
+          f"largest p {cgpu['map_dense'].max():.3f}; dist_ab_full 529 with "
+          f"zeros outside the hull; confidences sorted, top "
+          f"{conf[0]:.3f}; demo_global_histogram's frame within "
+          f"{int(d.max())} LSB of the session's; colorize_batch_global N=8 "
+          f"vs eight net_forward calls: {b_worst} LSB on at most "
+          f"{b_share:.2e} of the pixels; suggest_batch_table N=8: (8,"
+          f"{SUGGEST_K},3) palettes, confidences sorted and summing to 1")
+    if cgpu["batch_global"].shape != (8, S, S, 3) or \
+            b_worst > CAFFE_FRAME_BOUND_LSB or \
+            b_share >= CAFFE_FRAME_BOUND_SHARE:
+        die(f"colorize_batch_global N=8 vs eight net_forward calls: "
+            f"{b_worst} LSB on {b_share:.2e} of the pixels (bound "
+            f"{CAFFE_FRAME_BOUND_LSB} LSB on < {CAFFE_FRAME_BOUND_SHARE})")
+
+    # the CPU twin
+    t0 = time.perf_counter()
+    _, ccpu = caffe_session("cpu", CAFFE_CPU_CLICKS, False)
+    print(f"the Caffe path's CPU twin (dense click, {CAFFE_CPU_CLICKS} "
+          f"table clicks, two global clicks, dist click, predict): "
+          f"{time.perf_counter() - t0:.1f} s")
+    # the card's table map saw ten hints, the twin's fewer: again on the card
+    if cfd.predict_dist_table(*tables[CAFFE_CPU_CLICKS]) != 0:
+        die("Caffe path: predict_dist_table failed")
+    cgpu["map_table"] = cfd._dev_dist.cpu().numpy()
+    worst_frame, worst_share, worst_ab, worst_map = 0, 0.0, 0.0, 0.0
+    for key, want in ccpu.items():
+        got = cgpu[key]
+        if key.startswith("map"):
+            worst_map = max(worst_map, float(np.abs(got - want).max()))
+        elif got.dtype == np.uint8:
+            d = np.abs(got.astype(int) - want.astype(int)).max(-1)
+            worst_frame = max(worst_frame, int(d.max()))
+            worst_share = max(worst_share, float(np.mean(d != 0)))
+            same = d == 0
+            if same.any():
+                worst_ab = max(worst_ab, float(np.abs(
+                    cgpu["ab_" + key] - ccpu["ab_" + key]).max(0)[same]
+                    .max()))
+    glob_err = float(np.abs(cgpu["glob"] - ccpu["glob"]).max())
+    print(f"card vs CPU, Caffe path: frames within {worst_frame} LSB on at "
+          f"most {worst_share:.2e} of a frame's pixels (bound "
+          f"{CAFFE_FRAME_BOUND_LSB} LSB on < {CAFFE_FRAME_BOUND_SHARE}); "
+          f"output_ab within {worst_ab:.2e} where the frames agree (bound "
+          f"{CAFFE_AB_BOUND}); maps within {worst_map:.2e} (bound "
+          f"{MAP_BOUND}); global_stats histogram within {glob_err:.1e}")
+    if (worst_frame > CAFFE_FRAME_BOUND_LSB
+            or worst_share >= CAFFE_FRAME_BOUND_SHARE
+            or worst_ab > CAFFE_AB_BOUND or worst_map > MAP_BOUND
+            or glob_err > 1e-6):
+        die("the Caffe path on the card is outside its bounds against the "
+            "CPU twin")
+
+    # captured against eager, deterministic convolutions
+    torch.backends.cudnn.deterministic = True
+    try:
+        dm_, dg_, dd_ = caffe_models(None)
+        l4 = lambda mod: mod._dev_l_mc.permute(2, 0, 1)[None]  # noqa: E731
+        glob_dev = dg_._to_dev(dg_._glob_array(cgpu["glob"]))
+        for ab_, mask_ in (zero_hints, (dense_ab, dense_mask)):
+            frame = dm_.net_forward(ab_, mask_).copy()
+            rgb, ab = dm_._click.fn(dm_._dev_l_net, l4(dm_), dm_._hints3())
+            if not (np.array_equal(frame, rgb.cpu().numpy())
+                    and torch.equal(dm_._dev_output_ab, ab)):
+                die("captured Caffe dense click differs from the eager one")
+            for g_in, g_dev in ((-1, torch.zeros_like(glob_dev)),
+                                (cgpu["glob"], glob_dev)):
+                frame = dg_.net_forward(ab_, mask_, g_in).copy()
+                rgb, ab = dg_._click.fn(dg_._dev_l_net, l4(dg_),
+                                        dg_._hints3(), g_dev)
+                if not (np.array_equal(frame, rgb.cpu().numpy())
+                        and torch.equal(dg_._dev_output_ab, ab)):
+                    die("captured global click differs from the eager one "
+                        "(glob_dist=-1 must equal an all-zero blob)")
+                two_step = dg_.get_img_fullres()
+                if not np.array_equal(
+                        dg_.net_forward_fullres(ab_, mask_, g_in), two_step):
+                    die("global net_forward_fullres differs from "
+                        "net_forward + get_img_fullres")
+            frame = dd_.net_forward(ab_, mask_).copy()
+            rgb, ab, dmap = dd_._click.fn(dd_._dev_l_net, l4(dd_),
+                                          dd_._hints3())
+            cap_err = float((dd_._dev_dist - dmap).abs().max())
+            if not (np.array_equal(frame, rgb.cpu().numpy())
+                    and torch.equal(dd_._dev_output_ab, ab)
+                    and cap_err <= MAP_BOUND):
+                die(f"captured Caffe dist click differs from the eager one "
+                    f"(map {cap_err})")
+        for i in (0, 4, 10):
+            b, v, c = up(tables[i])
+            frame = dm_.net_forward_table(*tables[i]).copy()
+            out_ab = dm_._dev_output_ab
+            rgb, ab, planes = dm_._click_tbl.fn(dm_._dev_l_net,
+                                                dm_._dev_l_mc, b, v, c)
+            if not (np.array_equal(frame, rgb.cpu().numpy())
+                    and torch.equal(out_ab, ab)
+                    and np.array_equal(dm_.input_mask,
+                                       planes[2:].cpu().numpy())):
+                die(f"captured Caffe table click {i} differs from the eager "
+                    f"one")
+            # the dense click gets the mask already x110, the table click
+            # scales it inside: one frame by both routes
+            if not np.array_equal(
+                    dm_.net_forward(dm_.input_ab, dm_.input_mask), frame):
+                die(f"Caffe table click {i} and the dense click on its own "
+                    f"planes give different frames")
+            win = dm_.net_forward_table_win(*tables[i], *window)
+            ewin = dm_._click_tbl_win.fn(dm_._dev_l_net, dm_._dev_l_mc,
+                                         *window, b, v, c)[2]
+            if not (np.array_equal(win, ewin.cpu().numpy())
+                    and np.array_equal(dm_.output_rgb, frame)):
+                die(f"captured Caffe window click {i} differs from the "
+                    f"eager one")
+            if dd_.predict_dist_table(*tables[i]) != 0:
+                die("captured Caffe predict_dist_table failed")
+            emap = dd_._predict_tbl.fn(dd_._dev_l_mc, b, v, c)[0]
+            cap_err = max(cap_err,
+                          float((dd_._dev_dist - emap).abs().max()))
+        if cap_err > MAP_BOUND:
+            die(f"captured vs eager, Caffe maps: {cap_err}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"captured vs eager, Caffe clicks, deterministic convolutions: "
+          f"dense (0 and 6 hints), global (glob_dist=-1 equal to an "
+          f"all-zero blob; with the histogram), dist, table and window "
+          f"clicks (0, 4, 10 hints): frames, output_ab and hint planes "
+          f"byte-equal; table click equal to the dense click on its planes; "
+          f"global net_forward_fullres equal to the two-step form byte for "
+          f"byte; maps within {cap_err:.2e} (bound {MAP_BOUND})")
+
+    # times, for information
+    glob_np = cgpu["glob"]
+    caffe_clicks = (
+        ("Caffe main table click", lambda: cfm.net_forward_table(*tables[-1])),
+        ("Caffe main dense click",
+         lambda: cfm.net_forward(dense_ab, dense_mask)),
+        ("Caffe global click",
+         lambda: cfg.net_forward(*zero_hints, glob_np)),
+        ("Caffe dist click", lambda: cfd.net_forward(dense_ab, dense_mask)),
+        ("Caffe predict_dist_table",
+         lambda: cfd.predict_dist_table(*tables[-1])))
+    for name, fn in caffe_clicks:
+        fn()
+        t = host_ms(fn, 30)
+        events, per_click, wall_ms = device_profile(fn, 5)
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        conv_us = sum(e.self_device_time_total for e in events
+                      if any(tag in e.key for tag in
+                             ("conv", "gemm", "dgrad", "xmma", "cutlass",
+                              "cudnn", "nhwc", "nchw"))) / 5
+        print(f"{name} on the card (captured; host clock, results read "
+              f"back): p50 {np.percentile(t, 50):.3f} ms, p95 "
+              f"{np.percentile(t, 95):.3f} ms over {len(t)} calls; "
+              f"{per_click:.0f} device kernels, {host_launches()}; device "
+              f"busy {busy_ms / 5:.3f} ms per call, of it conv and layout "
+              f"kernels {conv_us / 1e3:.3f} ms; idle share "
+              f"{1 - busy_ms / wall_ms:.3f} under the profiler")
+        if name == "Caffe dist click":
+            for e in events[:10]:
+                print(f"  {e.self_device_time_total / 5:10.1f} us/click "
+                      f"{e.count // 5:4d}x  {e.key[:100]}")
+    bfm = ColorizeImageTorchCaffe(Xd=S)
+    bfm.prep_net(0, caffemodel_path=wpath["main"], dtype="bfloat16")
+    bfm.load_image_array(image(5, *FULLRES_HW))
+    bf_frame = bfm.net_forward_table(*tables[-1]).copy()
+    f32_frame = cfm.net_forward_table(*tables[-1])
+    bf_lsb, bf_equal = B.frame_delta_stats(bf_frame, f32_frame)
+    t = host_ms(lambda: bfm.net_forward_table(*tables[-1]), 30)
+    events, per_click, wall_ms = device_profile(
+        lambda: bfm.net_forward_table(*tables[-1]), 5)
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    print(f"Caffe main table click, bf16 (captured): p50 "
+          f"{np.percentile(t, 50):.3f} ms, p95 {np.percentile(t, 95):.3f} "
+          f"ms; {per_click:.0f} device kernels, device busy "
+          f"{busy_ms / 5:.3f} ms per click; against the f32 click: max "
+          f"{bf_lsb} LSB, {bf_equal:.4f} of the pixels equal, PSNR "
+          f"{psnr(bf_frame, f32_frame):.2f} dB, max |d output_ab| "
+          f"{np.abs(bfm.output_ab - cfm.output_ab).max():.3f} (printed, not "
+          f"bounded: a random-weight net; BF16_BOUND is the teacher's)")
+    print(f"peak device memory at the end of the run: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
+    tmp.cleanup()
+
+    # 12. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -1513,13 +2019,15 @@ def main() -> int:
             "source": f"ideepcolor_tpu_torch/csrc/{k.source}",
             "replaces": k.replaces,
             "launches": (launches[k.name] + dist_launches[k.name]
-                         + engine_launches[k.name]),
+                         + engine_launches[k.name]
+                         + caffe_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
+            "launches_caffe_path": caffe_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 12.
+    # 13.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

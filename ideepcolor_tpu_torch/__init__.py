@@ -4,23 +4,38 @@ A package of its own beside the JAX package, which stays the reference it is
 held against. It imports torch and numpy, never jax, and nothing of
 ``ideepcolor_tpu``. Module layout mirrors the JAX package:
 
-  api/       ColorizeImageTorch and ColorizeImageTorchDist (the
-             ColorizeImageBase contract)
+  api/       ColorizeImageTorch and ColorizeImageTorchDist (SIGGRAPH),
+             ColorizeImageTorchCaffe, ColorizeImageTorchCaffeDist and
+             ColorizeImageTorchCaffeGlobDist (the Caffe family), all on the
+             ColorizeImageBase contract
+  apps/      the two notebook sessions as functions (demos)
   data/      the ab bin tables; the host-facing gamut helpers (no Qt)
   engine/    the click, window, suggestion and full-res programs
              (pipeline), their form on the card as captured CUDA graphs
              (graphs), and the interactive, streaming and batch engines
   models/    the SIGGRAPH U-Net as an nn.Module, regression and
              distribution heads, f32, bf16 and TF32 modes, + weight
-             conversion
+             conversion; the three Caffe graphs (caffe_net), the native
+             .caffemodel reader and encoder (caffemodel_io), the global
+             color statistics of a reference image (global_stats)
   ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
              holds the hand-written kernels (sources in csrc/),
              counterparts of ops/pallas
 
+The histogram-transfer session::
+
+    from ideepcolor_tpu_torch.api import ColorizeImageTorchCaffeGlobDist
+    from ideepcolor_tpu_torch.models import global_stats
+    g = ColorizeImageTorchCaffeGlobDist(Xd=256)
+    g.prep_net(0, caffemodel_path="global.caffemodel")
+    g.load_image_array(rgb_uint8)
+    glob = global_stats.extract(ref_rgb_256 / 255.0)["glob_ab_313"]
+    frame = g.net_forward_fullres(zero_ab, zero_mask, glob)
+
 Not ported yet: the ``abq`` and ``*_host`` click variants with the
 packed-row click+suggest program (they wait for the native host ops), the
-Caffe family, the sharded (``mesh=``), global-histogram and batched-suggest
-forms of the batch engine, training and the apps.
+sharded (``mesh=``) forms of the batch engine, training, and the apps other
+than the demos (serve, video, eval, the GUI's control).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

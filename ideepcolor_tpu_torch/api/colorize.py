@@ -3,7 +3,10 @@
 Counterpart of ``ideepcolor_tpu/api/colorize.py``: ``ColorizeImageBase``,
 ``ColorizeImageJax`` as :class:`ColorizeImageTorch` and
 ``ColorizeImageJaxDist`` as :class:`ColorizeImageTorchDist`, the
-reference's own names for these backends. Same public contract: numpy
+reference's own names for these backends, and the Caffe family
+(``ColorizeImageJaxCaffe``, ``...CaffeGlobDist``, ``...CaffeDist``) as
+:class:`ColorizeImageTorchCaffe`, :class:`ColorizeImageTorchCaffeGlobDist`
+and :class:`ColorizeImageTorchCaffeDist`. Same public contract: numpy
 channel-first arrays in, uint8 (H, W, 3) frames out, the same method names,
 state fields, -1 sentinels and shape checks.
 
@@ -18,8 +21,8 @@ functions. ``prep_net(dtype="bfloat16")`` is the serving precision; f32
 parity is the default.
 
 Not ported yet: the ``abq`` and ``*_host`` click variants (with the
-packed-row click+suggest program; they wait for the native host ops) and
-the Caffe backends.
+packed-row click+suggest program; they wait for the native host ops), for
+the Caffe backends too.
 """
 
 from __future__ import annotations
@@ -30,9 +33,12 @@ import torch
 from ..device import resolve_device
 from ..engine import graphs
 from ..engine import pipeline as P
+from ..data.color_bins import get_bins
+from ..models import caffe_net
 from ..models.siggraph import (SIGGRAPHGenerator, init_state_dict,
                                load_state_dict_file)
 from ..ops import colorspace as cs
+from ..ops import quantize
 from ..ops.cuda import colorspace_kernel as k2
 from ..ops.quantize import make_pts_grid
 from ..ops.resize import (linear_resize_matrix_np, nearest_resize_matrix_np,
@@ -385,6 +391,10 @@ class ColorizeImageBase:
         return P.fullres_fuse(self._dev_l_fullres, ab_dev, self._dev_rh,
                               self._dev_rw).cpu().numpy()
 
+    def get_input_img_fullres(self):
+        return self._fullres_from_ab(
+            self._to_dev(self.input_ab.transpose(1, 2, 0)))
+
     def get_input_img(self):
         ab = self._to_dev(self.input_ab)
         return self._frame(self._dev_l_net[..., 0], ab[0], ab[1])
@@ -735,3 +745,259 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         plt.figure()
         plt.imshow(-self.dist_entropy, interpolation='nearest')
         plt.colorbar()
+
+
+class ColorizeImageTorchCaffe(ColorizeImageBase):
+    """Caffe main-graph backend (``mask_mult`` = 110): the dense click, the
+    table click and the window click over ``CaffeColorNet('main')``."""
+
+    variant = "main"
+
+    def __init__(self, Xd=256, device=None):
+        super().__init__(Xd, device=device)
+        self.l_norm = 1.
+        self.ab_norm = 1.
+        self.l_mean = 50.
+        self.ab_mean = 0.
+        self.mask_mult = 110.
+        self.pred_ab_layer = 'pred_ab'
+        self.pts_in_hull = get_bins().pts_in_hull
+
+    def prep_net(self, gpu_id=None, prototxt_path='', caffemodel_path='',
+                 dtype=None):
+        """``prototxt_path`` is accepted for the reference's signature and
+        unused (the graph is built in), as is ``gpu_id`` (the device was
+        chosen at construction). ``caffemodel_path``: a raw ``.caffemodel``
+        (parsed by ``models.caffemodel_io``), converted weights as ``.npz``
+        (the JAX package's layout, or torch's) or ``.pth``; without a path,
+        seeded random weights. ``dtype``: optional serving precision of the
+        convs (``"bfloat16"``); None keeps f32, the parity mode."""
+        if caffemodel_path and caffemodel_path.endswith(".caffemodel"):
+            from ..models.caffemodel_io import load_caffemodel
+            sd = load_caffemodel(caffemodel_path, self.variant)
+        elif caffemodel_path:
+            sd = caffe_net.load_state_dict_file(caffemodel_path,
+                                                self.variant)
+        else:
+            sd = caffe_net.init_state_dict(self.variant)
+        self.net = caffe_net.CaffeColorNet.from_state_dict(
+            sd, self.variant).to(self.device).requires_grad_(False) \
+            .cast_weights_(dtype)
+        self._make_click()
+        self.net_set = True
+
+    def _make_click(self):
+        mm, dev = self.mask_mult, self.device
+
+        def fwd(l_mc, h3):
+            # h3 = (1,3,H,W) [ab_mc, mask * mask_mult]: already scaled
+            return self.net.apply_main(torch.cat([l_mc, h3], 1))
+
+        self._click = P.make_click_program(fwd, dev)
+
+        def fwd_tbl(l_mc, ab, mask):
+            # K1's planes: the mask is in {0, 1} and is scaled here
+            return self.net.apply_main(torch.cat([l_mc, ab, mask * mm], 1))
+
+        self._fwd_tbl = fwd_tbl
+        self._click_tbl = P.make_table_click_program(fwd_tbl, self.Xd, dev)
+        self._click_tbl_win = P.make_table_click_win_program(
+            fwd_tbl, self.Xd, dev)
+
+    def _hints3(self) -> torch.Tensor:
+        """(1,3,Xd,Xd) on the device: the normalized hint ab and the mask
+        times ``mask_mult``, the three hint channels of the blob."""
+        return self._to_dev(np.concatenate(
+            [self.input_ab_mc, self.input_mask_mult], 0), torch.float32)[None]
+
+    def _l_mc4(self) -> torch.Tensor:
+        return self._dev_l_mc.permute(2, 0, 1)[None]
+
+    def net_forward(self, input_ab, input_mask):
+        if super().net_forward(input_ab, input_mask) == -1:
+            return -1
+        self._set_outputs(*self._dispatch_click())
+        return self.output_rgb
+
+    def _dispatch_click(self):
+        return self._click(self._dev_l_net, self._l_mc4(), self._hints3())
+
+
+class ColorizeImageTorchCaffeGlobDist(ColorizeImageTorchCaffe):
+    """Caffe global-histogram backend: every forward takes the (313,) global
+    ab histogram of a reference image (``models.global_stats.extract``), or
+    -1 for none. It has the dense click only."""
+
+    variant = "global"
+
+    def __init__(self, Xd=256, device=None):
+        super().__init__(Xd, device=device)
+        self.glob_mask_mult = 1.
+        self.glob_layer = 'glob_ab_313_mask'
+
+    def _glob_array(self, glob_dist) -> np.ndarray:
+        """(1, 314) histogram blob: 313 bins + the on/off mask channel;
+        glob_dist=-1 means 'no histogram' and zeroes the whole blob."""
+        if np.array(glob_dist).flatten()[0] == -1:
+            return np.zeros((1, 314), np.float32)
+        return np.concatenate(
+            [np.asarray(glob_dist, np.float32).ravel(),
+             [self.glob_mask_mult]]).astype(np.float32)[None]
+
+    def _make_click(self):
+        def fwd(l_mc, h3, glob):
+            return self.net.apply_global(torch.cat([l_mc, h3], 1), glob)
+
+        # the histogram is a tensor argument of the program: on the card it
+        # is copied into the captured graph's own buffer at every click
+        self._click = P.make_click_program(fwd, self.device)
+
+    def _glob_click(self, glob_dist):
+        return self._click(self._dev_l_net, self._l_mc4(), self._hints3(),
+                           self._to_dev(self._glob_array(glob_dist)))
+
+    def net_forward(self, input_ab, input_mask, glob_dist=-1):
+        if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
+            return -1
+        self._set_outputs(*self._glob_click(glob_dist))
+        return self.output_rgb
+
+    def net_forward_fullres(self, input_ab, input_mask, glob_dist=-1):
+        """Histogram-conditioned forward + full-res reconstruction with one
+        readback (the full-res frame); the net-size frame stays on the
+        device in ``output_rgb`` (lazy)."""
+        finish = self.net_forward_fullres_async(input_ab, input_mask,
+                                                glob_dist)
+        return finish if finish == -1 else finish()
+
+    def net_forward_fullres_async(self, input_ab, input_mask, glob_dist=-1):
+        """The base ``net_forward_fullres_async`` with the histogram:
+        dispatch and start the copy under a caller's lock, block outside."""
+        if not self.img_l_set or not self.net_set:
+            return -1
+        if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
+            return -1
+        self._set_outputs(*self._glob_click(glob_dist))
+        return self.get_img_fullres_async()
+
+    def _dispatch_click(self):
+        # the click needs the histogram argument; the base class's fused
+        # forward + full-res path cannot drive it -> its sentinel -1
+        return None
+
+
+class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
+    """Caffe dist-graph backend with the 313-bin distribution at full
+    resolution and the color suggestions. The map stays on the device as
+    (Xd, Xd, 313), bins last (82 MB at Xd=256); ``dist_ab`` gives the
+    reference's (313, Xd, Xd) on the host. Each model owns a
+    ``torch.Generator`` seeded 0 on its device."""
+
+    variant = "dist"
+    dist_map_div = 1      # the device map is at full resolution
+
+    def __init__(self, Xd=256, device=None):
+        super().__init__(Xd, device=device)
+        self.dist_ab_set = False
+        bins = get_bins()
+        self.pts_grid = bins.pts_grid
+        self.in_hull = bins.in_hull
+        self.AB = 529
+        self.A = self.B = 23
+        self._generator = torch.Generator(device=self.device).manual_seed(0)
+        self._dev_dist = None
+        self._dist_np = None
+        self._dist_full_np = None
+
+    def prep_net(self, gpu_id=None, prototxt_path='', caffemodel_path='',
+                 S=.2, dtype=None):
+        super().prep_net(gpu_id, prototxt_path, caffemodel_path, dtype=dtype)
+        self.S = S
+        self.net.scale_S.scale.fill_(S)
+        self._predict_tbl = P.make_table_dist_program(
+            self._dist_fwd_tbl, self.Xd, self.device)
+        self._suggest_tbl_cache = {}
+
+    def _dist_fwd_tbl(self, l_mc, ab, mask):
+        """l_mc (Xd,Xd,1), K1's ab (2,Xd,Xd) and mask (1,Xd,Xd) in {0,1} ->
+        the (Xd,Xd,313) map."""
+        blob = torch.cat([l_mc.permute(2, 0, 1), ab,
+                          mask * self.mask_mult], 0)[None]
+        return self.net.dist_map(blob)[0]
+
+    def _make_click(self):
+        def fwd(l_mc, h3):
+            return self.net.apply_dist(torch.cat([l_mc, h3], 1))
+
+        self._click = P.make_dist_click_program(fwd, self.device)
+
+    def _dispatch_click(self):
+        # the dist click has three outputs; the base class's fused forward
+        # + full-res path expects (rgb, ab) -> its sentinel -1
+        return None
+
+    def _set_dist(self, dist_map):
+        self._dev_dist = dist_map
+        self.dist_ab_set = True
+        self._dist_np = None          # the numpy mirrors are lazy
+        self._dist_full_np = None
+
+    def net_forward(self, input_ab, input_mask):
+        if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
+            return -1
+        rgb, out_ab, dist_S = self._click(self._dev_l_net, self._l_mc4(),
+                                          self._hints3())
+        self._set_outputs(rgb, out_ab)
+        self._set_dist(self._keep(dist_S))
+        return self.output_rgb
+
+    # the same contracts as the SIGGRAPH dist class's; the programs are
+    # generic over the dist forward and the map's resolution (dist_map_div)
+    predict_dist_table = ColorizeImageTorchDist.predict_dist_table
+    suggest_table = ColorizeImageTorchDist.suggest_table
+    ensure_suggest_program = ColorizeImageTorchDist.ensure_suggest_program
+    MAX_SUGGEST_K = ColorizeImageTorchDist.MAX_SUGGEST_K
+    MAX_SUGGEST_N = ColorizeImageTorchDist.MAX_SUGGEST_N
+    _SUGGEST_CACHE_MAX = ColorizeImageTorchDist._SUGGEST_CACHE_MAX
+    plot_dist_grid = ColorizeImageTorchDist.plot_dist_grid
+    plot_dist_entropy = ColorizeImageTorchDist.plot_dist_entropy
+
+    @property
+    def dist_ab(self):
+        """(313, Xd, Xd) on the host, made on first read."""
+        if self._dist_np is None:
+            self._dist_np = self._dev_dist.permute(2, 0, 1).cpu().numpy()
+        return self._dist_np
+
+    @property
+    def dist_ab_full(self):
+        """(529, Xd, Xd): the 313 in-hull bins scattered into the full
+        grid, zeros outside the hull."""
+        if self._dist_full_np is None:
+            self._dist_full_np = quantize.scatter_to_grid(
+                torch.from_numpy(self.dist_ab), self.in_hull).reshape(
+                    529, self.Xd, self.Xd).numpy()
+        return self._dist_full_np
+
+    @property
+    def dist_ab_grid(self):
+        return self.dist_ab_full.reshape((self.A, self.B, self.Xd, self.Xd))
+
+    def get_ab_reccs(self, h, w, K=5, N=25000, return_conf=False):
+        if not self.dist_ab_set:
+            print('Need to set prediction first')
+            return 0
+        centers, conf = P.suggest_at(self._dev_dist, int(h), int(w),
+                                     self._dev_pts(), self._generator,
+                                     K=K, N=N)
+        centers, conf = centers.cpu().numpy(), conf.cpu().numpy()
+        return (centers, conf) if return_conf else centers
+
+    def compute_entropy(self):
+        self.dist_entropy = P.dist_entropy(self._dev_dist).cpu().numpy()
+
+
+# Drop-in aliases: reference-style code instantiates these names.
+ColorizeImageCaffe = ColorizeImageTorchCaffe
+ColorizeImageCaffeDist = ColorizeImageTorchCaffeDist
+ColorizeImageCaffeGlobDist = ColorizeImageTorchCaffeGlobDist

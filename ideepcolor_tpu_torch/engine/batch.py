@@ -2,20 +2,21 @@
 
 Counterpart of the single-device forms of ``ideepcolor_tpu/engine/batch.py``:
 the batched full-res fusion, the batched hint-conditioned forwards (dense
-planes or per-image hint tables) and the multi-frame streaming window. They
-keep the JAX package's channel-last layouts at their boundary and run the
-U-Net at ``precision_name="default"`` (TF32 on the card), as the JAX
-functions run at ``Precision.DEFAULT``. They take the module or a state dict
-(``models.siggraph.as_module``) where the JAX functions take ``params``.
+planes or per-image hint tables), the multi-frame streaming window, the
+batched suggestions and the batched global-histogram forward of the Caffe
+family. They keep the JAX package's channel-last layouts at their boundary
+and run the U-Net at ``precision_name="default"`` (TF32 on the card), as the
+JAX functions run at ``Precision.DEFAULT``; the global-histogram form runs
+at "highest", as the JAX function does. They take the module or a state dict
+(``models.siggraph.as_module``, ``models.caffe_net.as_module``) where the
+JAX functions take ``params``.
 
 The batched rasterize (``jax.vmap(rasterize_hints)`` there) is kernel K1's
 batched entry, one launch for N tables; the batched compose is kernel K2's,
 one launch for N frames.
 
 Not carried: the ``mesh=`` argument and the sharded forms (they wait for the
-port of ``parallel/mesh.py``), ``batch_forward_frames_global`` /
-``colorize_batch_global`` (the Caffe family) and ``batch_suggest_table`` /
-``suggest_batch_table``.
+port of ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,10 +25,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models import caffe_net
 from ..models.siggraph import as_module
 from ..ops import colorspace as cs
+from ..ops import kmeans as km
 from ..ops.cuda import colorspace_kernel as k2
 from ..ops.cuda import hints_kernel as k1
+from ..ops.quantize import make_pts_grid
 from ..ops.resize import linear_resize_matrix_np
 from . import pipeline as P
 
@@ -188,3 +192,106 @@ def stream_window_u8(weights, frames_u8, boxes, values, count,
         torch.as_tensor(np.asarray(boxes, np.int32), device=dev),
         torch.as_tensor(np.asarray(values, np.float32), device=dev),
         int(count), float(maskcent)).cpu().numpy()
+
+
+def image_generator(seed: int, index: int, device) -> torch.Generator:
+    """The random stream of image ``index`` of a batch seeded ``seed``:
+    independent per image and the same whatever the batch holds besides
+    (where the JAX package folds the index into its key)."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(
+        2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(state[0]) << 32) | int(state[1]))
+
+
+@torch.no_grad()
+def batch_suggest_table(weights, l_mc: torch.Tensor, boxes: torch.Tensor,
+                        values: torch.Tensor, counts: torch.Tensor,
+                        hs: torch.Tensor, ws: torch.Tensor,
+                        centers_tbl: torch.Tensor, seed: int = 0,
+                        maskcent: float = 0.0, K: int = 9, N: int = 25000
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched serving suggest: per-image hint tables and click pixels ->
+    K-color suggestion palettes, one forward over the whole batch.
+
+    The batched form of ``engine.pipeline.make_table_suggest_program``:
+    K1's batched entry rasterizes the B tables in one launch, ONE dist
+    forward over the batch (the SIGGRAPH 529-way head at H/4, default
+    precision), then per image the CMF sampling and the weighted k-means at
+    its pixel, each image with a generator of its own
+    (:func:`image_generator`), and one K2 launch for the (B, K) palettes at
+    the pixels' own L. l_mc (B,S,S,1); boxes (B,M,4) int32, values (B,M,2),
+    counts, hs, ws (B,) int32, all on ``l_mc``'s device (nothing is read
+    back). Returns (colors_u8 (B,K,3), conf (B,K))."""
+    net = as_module(weights, l_mc.device)
+    size = l_mc.shape[1]
+    hints = k1.rasterize_hints_batch(boxes, values, counts, size)
+    _reg, dist_map = net(l_mc.permute(0, 3, 1, 2), hints[:, :2],
+                         hints[:, 2:], maskcent, dist=True, dist_lowres=True,
+                         precision_name="default")
+    dist_map = dist_map.permute(0, 2, 3, 1)          # (B, S/4, S/4, 529)
+    labs, confs = [], []
+    for i in range(l_mc.shape[0]):
+        h, w = hs[i:i + 1], ws[i:i + 1]
+        centers, conf = km.ab_recommendations(
+            P.pixel_at(dist_map[i], h // 4, w // 4), centers_tbl,
+            image_generator(seed, i, l_mc.device), K=K, N=N)
+        lum = P.pixel_at(l_mc[i], h, w) + 50.0
+        labs.append(torch.cat([lum.expand(K, 1), centers], 1))
+        confs.append(conf)
+    lab = torch.stack(labs)                          # (B, K, 3)
+    return (k2.lab_to_rgb_u8_hwc(lab[..., 0], lab[..., 1], lab[..., 2]),
+            torch.stack(confs))
+
+
+def suggest_batch_table(weights, images_rgb, boxes, values, counts, hs, ws,
+                        K: int = 9, N: int = 25000, maskcent: float = 0.0,
+                        seed: int = 0, device=None):
+    """Public batched suggest: uint8 RGB images + hint tables + click
+    points in, (colors_u8 (n,K,3), conf (n,K)) numpy out. Runs on the card
+    unless ``device="cpu"``."""
+    dev = resolve_device(device)
+    net = as_module(weights, dev)
+    i32 = lambda a: torch.as_tensor(  # noqa: E731
+        np.asarray(a, np.int32), device=dev)
+    colors, conf = batch_suggest_table(
+        net, _prep_l_mc(_images(images_rgb, dev)), i32(boxes),
+        torch.as_tensor(np.asarray(values, np.float32), device=dev),
+        i32(counts), i32(hs), i32(ws),
+        torch.as_tensor(make_pts_grid(), dtype=torch.float32, device=dev),
+        seed=seed, maskcent=float(maskcent), K=K, N=N)
+    return colors.cpu().numpy(), conf.cpu().numpy()
+
+
+@torch.no_grad()
+def batch_forward_frames_global(weights, l_mc: torch.Tensor,
+                                hints3: torch.Tensor, glob: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched GLOBAL-HISTOGRAM conditioned forward of the Caffe global
+    graph: (N,S,S,1) mean-centered L planes + (N,S,S,3) dense hint planes
+    (ab, mask x 110) + per-image (N,314) histogram blobs (313 bins and the
+    on/off flag) -> (uint8 frames (N,S,S,3), predicted ab (N,S,S,2)). K2's
+    batched entry composes the N frames in one launch."""
+    net = caffe_net.as_module(weights, l_mc.device, "global")
+    l = l_mc.permute(0, 3, 1, 2)
+    ab = net.apply_global(torch.cat([l, hints3.permute(0, 3, 1, 2)], 1), glob)
+    rgb = k2.lab_to_rgb_u8_batch((l + 50.0)[:, 0], ab[:, 0], ab[:, 1])
+    return rgb, ab.permute(0, 2, 3, 1)
+
+
+def colorize_batch_global(weights, images_rgb, glob_dists, hints3=None,
+                          device=None) -> np.ndarray:
+    """Public batched global-histogram serving: uint8 RGB images + (N,314)
+    histogram blobs (a row may be all zero: unconditioned, the glob_dist=-1
+    sentinel) in, colorized uint8 frames out. Runs on the card unless
+    ``device="cpu"``."""
+    dev = resolve_device(device)
+    net = caffe_net.as_module(weights, dev, "global")
+    imgs = _images(images_rgb, dev)
+    n, s = imgs.shape[0], imgs.shape[1]
+    hints3 = (torch.zeros((n, s, s, 3), device=dev) if hints3 is None else
+              torch.as_tensor(np.asarray(hints3, np.float32), device=dev))
+    glob = torch.as_tensor(np.asarray(glob_dists, np.float32), device=dev)
+    rgb, _ab = batch_forward_frames_global(net, _prep_l_mc(imgs), hints3,
+                                           glob)
+    return rgb.cpu().numpy()

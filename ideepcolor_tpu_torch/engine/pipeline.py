@@ -246,3 +246,20 @@ def make_click_program(apply_fn, device=None):
         return k2.lab_to_rgb_u8_ab(l_net[..., 0], ab[0], ab[1])
 
     return graphs.program(click, device)
+
+
+def make_dist_click_program(apply_fn, device=None):
+    """The dense click of a model whose forward also gives the distribution
+    map (the Caffe dist graph): ``apply_fn(*model_args) -> (pred_ab
+    (1,2,H,W), dist_S (1,H,W,Q))``, then K2's fused entry.
+    ``click(l_net, *model_args)`` gives ``(rgb (H,W,3) uint8, out_ab
+    (H,W,2), dist_S (H,W,Q))``."""
+
+    @torch.no_grad()
+    def click(l_net, *model_args):
+        pred_ab, dist_S = apply_fn(*model_args)
+        rgb, out_ab = k2.lab_to_rgb_u8_ab(l_net[..., 0], pred_ab[0, 0],
+                                          pred_ab[0, 1])
+        return rgb, out_ab, dist_S[0]
+
+    return graphs.program(click, device)

@@ -113,3 +113,45 @@ def lab_to_rgb_u8(lab: torch.Tensor) -> torch.Tensor:
     """Lab -> uint8 RGB: ``(clip(lab2rgb(lab), 0, 1) * 255)`` truncated, the
     reference's ``lab2rgb_transpose`` convention."""
     return (lab_to_rgb(lab) * 255.0).to(torch.uint8)
+
+
+def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
+    """sRGB [0,1] (..., 3) -> HSV (..., 3), as ``skimage.color.rgb2hsv``:
+    the mean-saturation input of the global-statistics extraction.
+
+    ``torch.remainder`` keeps the sign of the divisor, as Python's ``%`` on
+    a negative ``(g - b) / c`` does (``fmod`` would not); a gray pixel has
+    hue 0, a black one saturation 0; where two channels tie for the
+    maximum, red is tested before green."""
+    rgb = rgb.to(torch.float32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    v = rgb.max(dim=-1).values
+    c = v - rgb.min(dim=-1).values
+    safe_c = torch.where(c == 0, 1.0, c)
+    h_r = torch.remainder((g - b) / safe_c, 6.0)
+    h_g = (b - r) / safe_c + 2.0
+    h_b = (r - g) / safe_c + 4.0
+    h = torch.where(v == r, h_r, torch.where(v == g, h_g, h_b)) / 6.0
+    h = torch.where(c == 0, 0.0, h)
+    s = torch.where(v == 0, 0.0, c / torch.where(v == 0, 1.0, v))
+    return torch.stack([h, s, v], dim=-1)
+
+
+def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """HSV (..., 3) -> sRGB [0,1]. Inverse of :func:`rgb_to_hsv`."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    i = torch.remainder(i.to(torch.int32), 6)
+
+    def select(choices):
+        out = choices[5]
+        for k in range(4, -1, -1):
+            out = torch.where(i == k, choices[k], out)
+        return out
+
+    return torch.stack([select([v, q, p, p, t, v]), select([t, v, v, q, p, p]),
+                        select([p, p, t, v, v, q])], dim=-1)

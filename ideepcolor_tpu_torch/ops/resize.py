@@ -12,6 +12,8 @@ the full-res getters use:
   (:func:`cubic_resize_matrix_np`) for the same two products;
 * the dist head's integer-factor nearest upsample
   (:func:`upsample_nearest`);
+* the Caffe dist head's fixed x2 bilinear upsampler
+  (:func:`bilinear_up2_fixed`, a depthwise transposed conv);
 * the net-size image resize, :func:`resize_u8_half_pixel`: ``cv2.resize``
   with ``INTER_LINEAR`` (half-pixel centres, no antialias), written in
   torch integer arithmetic so the port needs no cv2 or PIL.
@@ -87,6 +89,45 @@ def upsample_nearest(x: torch.Tensor, factor: int, h_axis: int = -3,
     are the channel-last layout's."""
     x = x.repeat_interleave(factor, dim=h_axis % x.ndim)
     return x.repeat_interleave(factor, dim=w_axis % x.ndim)
+
+
+# Fixed 2x bilinear upsampling kernel the reference injects into the Caffe
+# '*_us' grouped deconvolutions. Its last row and column are zero.
+CAFFE_US_KERNEL = (
+    (0.25, 0.5, 0.25, 0.0),
+    (0.5, 1.0, 0.5, 0.0),
+    (0.25, 0.5, 0.25, 0.0),
+    (0.0, 0.0, 0.0, 0.0),
+)
+
+
+_US_KERNELS: dict = {}
+
+
+def _us_kernel(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``CAFFE_US_KERNEL`` on ``device``, made once per device and type: a
+    host-to-device copy at every call would be illegal while a click is
+    captured into a CUDA graph (the warm-up run before a capture makes it)."""
+    k = _US_KERNELS.get((device, dtype))
+    if k is None:
+        k = _US_KERNELS[device, dtype] = torch.tensor(
+            CAFFE_US_KERNEL, dtype=dtype, device=device)
+    return k
+
+
+def bilinear_up2_fixed(x: torch.Tensor) -> torch.Tensor:
+    """Depthwise 2x transposed conv with the fixed reference kernel: Caffe's
+    ``Deconvolution(kernel=4, stride=2, pad=1, group=C)`` with
+    ``CAFFE_US_KERNEL`` as every channel's weight. (N, C, H, W) ->
+    (N, C, 2H, 2W), in the type of ``x``.
+
+    The kernel goes to ``conv_transpose2d`` as it is written above. The JAX
+    package computes the same function as a regular conv over the dilated
+    input, which takes the kernel flipped (zero row and column leading)."""
+    c = x.shape[1]
+    k = _us_kernel(x.device, x.dtype)
+    return F.conv_transpose2d(x, k.expand(c, 1, 4, 4), stride=2, padding=1,
+                              groups=c)
 
 
 def zoom_with_matrices(x: torch.Tensor, rh: torch.Tensor,

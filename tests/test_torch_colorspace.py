@@ -166,3 +166,71 @@ def test_fullres_getters_match_jax_crops():
         assert got.shape == (H, W, 3)
         d = np.abs(got - want)
         assert d.max() <= 1 and np.mean(d != 0) < 1e-3
+
+
+def _hsv_cases():
+    rgb = _rgb((40, 30, 3))
+    rgb[0, 0] = 0.0                        # black: v == 0
+    rgb[0, 1] = 0.5                        # gray: c == 0
+    rgb[0, 2] = (0.7, 0.7, 0.2)            # r and g tie for the maximum
+    rgb[0, 3] = (0.2, 0.7, 0.7)            # g and b tie
+    rgb[0, 4] = (0.9, 0.1, 0.6)            # max red with b > g: (g-b)/c < 0
+    rgb[0, 5] = 1.0
+    return rgb
+
+
+def test_rgb_to_hsv_matches_jax():
+    """1e-6 (measured 0): the ``% 6`` of a negative hue term, the gray and
+    black guards, and red tested before green on ties."""
+    rgb = _hsv_cases()
+    got = tcs.rgb_to_hsv(torch.from_numpy(rgb)).numpy()
+    want = np.asarray(jcs.rgb_to_hsv(jnp.asarray(rgb)))
+    assert np.abs(got - want).max() <= 1e-6
+    assert got[0, 0].tolist() == [0.0, 0.0, 0.0]
+    assert got[0, 1, 0] == 0.0 and got[0, 1, 1] == 0.0
+    assert 0.5 < got[0, 4, 0] < 1.0        # wrapped into [0, 1), not negative
+    assert got[..., 0].min() >= 0.0 and got[..., 0].max() < 1.0
+
+
+def test_hsv_to_rgb_matches_jax_and_inverts():
+    rgb = _hsv_cases()
+    hsv = np.array(jcs.rgb_to_hsv(jnp.asarray(rgb)))
+    hsv[1, 0] = (1.0, 0.5, 0.5)            # h == 1: sector 6 wraps to 0
+    got = tcs.hsv_to_rgb(torch.from_numpy(hsv)).numpy()
+    want = np.asarray(jcs.hsv_to_rgb(jnp.asarray(hsv)))
+    assert np.abs(got - want).max() <= 1e-6
+    back = tcs.hsv_to_rgb(tcs.rgb_to_hsv(torch.from_numpy(rgb))).numpy()
+    assert np.abs(back - rgb).max() <= 1e-5
+
+
+@pytest.mark.parametrize("hw", [(6, 8), (5, 7), (1, 1)])
+def test_bilinear_up2_fixed_matches_jax(hw):
+    """1e-6 at even and odd sizes (measured 6e-8); exactly twice the size;
+    the input's type is kept."""
+    x = RNG.standard_normal((2,) + hw + (5,)).astype(np.float32)
+    want = np.asarray(jrs.bilinear_up2_fixed(jnp.asarray(x)))
+    got = trs.bilinear_up2_fixed(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert tuple(got.shape) == (2, 5, 2 * hw[0], 2 * hw[1])
+    assert np.abs(got.permute(0, 2, 3, 1).numpy() - want).max() <= 1e-6
+    half = trs.bilinear_up2_fixed(
+        torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16))
+    assert half.dtype == torch.bfloat16
+
+
+def test_bilinear_up2_fixed_impulse_lands_where_jax_puts_it():
+    """An impulse at (2, 3) of an odd-sized plane: the kernel's 3x3 block of
+    weights centered on (4, 6), its zero row and column on the far side. A
+    flipped kernel would shift the block by one pixel."""
+    x = np.zeros((1, 5, 7, 1), np.float32)
+    x[0, 2, 3, 0] = 1.0
+    got = trs.bilinear_up2_fixed(torch.from_numpy(x).permute(0, 3, 1, 2)
+                                 )[0, 0].numpy()
+    want = np.asarray(jrs.bilinear_up2_fixed(jnp.asarray(x)))[0, ..., 0]
+    assert np.array_equal(got, want)
+    block = np.array([[0.25, 0.5, 0.25], [0.5, 1.0, 0.5], [0.25, 0.5, 0.25]],
+                     np.float32)
+    expect = np.zeros((10, 14), np.float32)
+    expect[3:6, 5:8] = block
+    assert np.array_equal(got, expect)
+    assert np.array_equal(np.asarray(trs.CAFFE_US_KERNEL, np.float32),
+                          np.asarray(jrs.CAFFE_US_KERNEL))
