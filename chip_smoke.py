@@ -124,11 +124,39 @@ or more each; any failure exits non-zero:
    ``predict_dist_table`` (p50 / p95 on the host clock, device kernels and
    host launches per click, where the dist click's device time goes), one
    captured bf16 main click against f32, and the run's peak device memory;
-12. one JSON line listing each kernel entry with its launches on the four
+12. the HTTP server (``apps/serve.py``), the fifth path, with launch counts
+   of its own: ``make_server(device="cuda", dtype="float32", auto_batch=4)``
+   on the teacher with ``student_w05`` as the fast tier and phase 11's
+   seeded global net, ``warmup(suggest=True)``, ``serve_forever`` on a
+   thread, then requests over ``http.client`` with bodies encoded by the
+   port's own PNG codec: /healthz, a full-res /colorize with hints, a net-res
+   one, 8 concurrent net-res ones (they must coalesce in the auto-batcher),
+   ?model=fast, a session (10 clicks, a full-res click, /session/suggest,
+   DELETE; the closed session's image must be freed), two sessions clicked
+   from two threads in turns, /suggest, /colorize_global, /colorize_batch
+   (N=4, hint tables), /stats, /metrics and bad requests (the JAX server's
+   status codes; JPEG 415 without OpenCV), then a bf16 server for 10 session
+   clicks. K1's device-count entry and K2's compose, fused and batched
+   entries must launch. Every reply is then held against the port's API
+   called directly on the same inputs: f32 net frames 1 LSB on < 1e-3 of
+   the pixels (a full-res reply is its own model's fusion byte for byte,
+   and moves < 1e-3 of the pixels from the API's full-res frame),
+   auto-batched and /colorize_batch frames within TF32_BOUND, the
+   global frame within the CAFFE_* bound, interleaved sessions against
+   their single-session frames, the bf16 server against the f32 server
+   within BF16_BOUND, suggestions within SUGGEST_BOUND of ``suggest_table``
+   on the same seed. Printed, for information: the codec's encode and
+   decode ms at 1000x750 (also the decode of the same image written by
+   another encoder: Sub rows, and Average / Paeth rows), each stage's
+   p50 / p95 from /stats (the traffic's, after warmup) and each
+   endpoint's HTTP round trip, the session click over HTTP against the
+   in-process captured click, the host pieces of a reply timed alone, and
+   the phase's peak device memory;
+13. one JSON line listing each kernel entry with its launches on the five
    paths, its error against the plain version, its time, the plain
    version's, its bound and what sets it, and the shape and plane layout
    those numbers were measured at;
-13. last line: {"ok": true, "device": {...}}.
+14. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -188,6 +216,11 @@ CAFFE_FRAME_BOUND_SHARE = 1e-2
 CAFFE_AB_BOUND = 1e-3
 CAFFE_CPU_CLICKS = 2         # table clicks of the CPU twin
 CAFFE_SEED = 21              # of the three seeded weight sets
+# a served suggestion against the dist class's suggest_table on the same
+# image, table and generator seed (graph replay against graph replay): max
+# |d color| in LSB, max |d conf|. The dist forward's cuDNN kernels differ in
+# the last bits between two runs, which may move a sample's bin
+SUGGEST_BOUND = (2, 1e-3)
 
 
 def die(msg: str) -> None:
@@ -336,6 +369,523 @@ def traffic(planes, out_bytes: int) -> int:
 def lsb(got, want) -> tuple[int, float]:
     d = (got.int() - want.int()).abs()
     return int(d.max()), float((d != 0).float().mean())
+
+
+def frame_check(label: str, got, want, max_lsb: int, share: float) -> float:
+    """Die unless ``got`` is within ``max_lsb`` of ``want`` per channel on
+    fewer than ``share`` of the pixels; returns the share that differs."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or got.dtype != np.uint8:
+        die(f"{label}: {got.shape} {got.dtype} against {want.shape}")
+    d = np.abs(got.astype(int) - want.astype(int)).max(-1)
+    moved = float(np.mean(d != 0))
+    if d.max() > max_lsb or moved >= share:
+        die(f"{label}: {int(d.max())} LSB on {moved:.2e} of the pixels "
+            f"(bound {max_lsb} LSB on < {share})")
+    return moved
+
+
+def filtered_png(img: np.ndarray, kinds: list) -> bytes:
+    """(H, W, 3) uint8 as a PNG whose row y is filtered with
+    ``kinds[y % len(kinds)]`` (PNG spec section 9), as another encoder
+    would write it."""
+    import struct
+    import zlib
+    from ideepcolor_tpu_torch.utils.imageio import PNG_SIGNATURE
+    H, W = img.shape[:2]
+    x = img.reshape(H, W * 3).astype(np.int32)
+    up = np.vstack([np.zeros((1, W * 3), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((H, 3), np.int32), x[:, :-3]])
+    ul = np.hstack([np.zeros((H, 3), np.int32), up[:, :-3]])
+    pa, pb, pc = np.abs(up - ul), np.abs(left - ul), np.abs(left + up - 2 * ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+    preds = (0 * x, left, up, (left + up) >> 1, paeth)
+    k = np.array([kinds[y % len(kinds)] for y in range(H)])
+    pred = np.choose(k[:, None], preds)
+    rows = np.hstack([k[:, None], (x - pred) & 0xFF]).astype(np.uint8)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def server_phase(entries, glob_weights: str) -> dict:
+    """Phase 12: apps/serve.py on the card. Returns the phase's launches
+    per kernel entry (the server's traffic only: the references are made
+    after the counts are read)."""
+    import gc
+    import http.client
+    import importlib.util
+    import io
+    import threading
+    import weakref
+
+    import torch
+    from ideepcolor_tpu_torch.api import (ColorizeImageTorch,
+                                          ColorizeImageTorchCaffeGlobDist,
+                                          ColorizeImageTorchDist)
+    from ideepcolor_tpu_torch.apps import serve
+    from ideepcolor_tpu_torch.engine import batch as B
+    from ideepcolor_tpu_torch.engine import pipeline as P
+    from ideepcolor_tpu_torch.models import global_stats
+    from ideepcolor_tpu_torch.ops import hints
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+    from ideepcolor_tpu_torch.ops.resize import resize_u8_half_pixel
+    from ideepcolor_tpu_torch.utils.imageio import decode_image, encode_png
+
+    fast_weights = "weights/student_w05.npz"
+    server_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
+                      k2.KERNEL_BATCH)
+    rtt: dict = {}                   # endpoint -> [client round trip, s]
+
+    def request(srv, kind, method, path, body=None, headers=None):
+        c = http.client.HTTPConnection(*srv.server_address, timeout=300)
+        t0 = time.perf_counter()
+        c.request(method, path, body=body, headers=headers or {})
+        r = c.getresponse()
+        data = r.read()
+        rtt.setdefault(kind, []).append(time.perf_counter() - t0)
+        c.close()
+        return r.status, data
+
+    def ok(srv, kind, method, path, body=None, headers=None):
+        st, data = request(srv, kind, method, path, body, headers)
+        if st != 200:
+            die(f"server: {method} {path} answered {st}: {data[:200]!r}")
+        return data
+
+    def own_state(m):
+        """What a model's full-res frame is made from: the tensors it keeps
+        (full-res L, the kept ab, the matrices; held, not the model) and its
+        net frame (read back: a copy, no kernel)."""
+        return (m._dev_l_fullres, m._dev_output_ab, m._dev_rh, m._dev_rw,
+                m.output_rgb)
+
+    def start(**kw):
+        srv = serve.make_server(port=0, size=S, device="cuda",
+                                weights=WEIGHTS, **kw)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        return srv
+
+    # the codec at the full-res size (host clock)
+    big = image(12, *FULLRES_HW)
+    enc_ms, dec_ms = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        png = encode_png(big)
+        enc_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        back = decode_image(png)
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(back, big):
+        die("server: the PNG codec does not round-trip")
+    # other encoders' rows: OpenCV's default PNG filters every row Sub;
+    # libpng's adaptive choice mixes in Average and Paeth (decoded along
+    # anti-diagonals)
+    other_ms = {}
+    for name, kinds in (("Sub rows (OpenCV's default)", [1]),
+                        ("Average/Paeth rows (adaptive)", [3, 4, 1, 2])):
+        data = filtered_png(big, kinds)
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            back = decode_image(data)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(back, big):
+            die(f"server: the PNG decoder on {name}")
+        other_ms[name] = np.median(ts)
+    print(f"PNG codec at {FULLRES_HW[0]}x{FULLRES_HW[1]} (host clock, "
+          f"median of 5): encode {np.median(enc_ms):.1f} ms "
+          f"({len(png) / 1e6:.2f} MB), decode {np.median(dec_ms):.1f} ms; "
+          f"decode (median of 3) of " + ", ".join(f"{k} {v:.1f} ms"
+                                    for k, v in other_ms.items()))
+
+    # -- the server's traffic, launches counted --
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem_before = torch.cuda.memory_allocated()
+    for k in entries:
+        k.launches = 0
+    t_start = time.perf_counter()
+    srv = start(dtype="float32", auto_batch=4, student_weights=fast_weights,
+                glob_weights=glob_weights)
+    svc = srv.RequestHandlerClass.service
+    t0 = time.perf_counter()
+    svc.warmup(suggest=True)
+    warm_s = time.perf_counter() - t0
+    svc.timer.samples.clear()        # /stats: the traffic's stages only
+    replies, states = {}, {}
+    health = json.loads(ok(srv, "healthz", "GET", "/healthz"))
+    if health["device"] != torch.cuda.get_device_name(0):
+        die(f"server: /healthz device {health['device']!r}")
+    full_hints = session_hints(10, seed=21)
+    replies["fullres"] = ok(srv, "colorize_fullres", "POST", "/colorize",
+                            encode_png(big),
+                            {"X-Hints": json.dumps(full_hints)})
+    states["fullres"] = own_state(svc.model)
+    net_img = image(13, 300, 400)
+    net_png = encode_png(net_img)
+    replies["netres"] = ok(srv, "colorize_netres", "POST",
+                           "/colorize?fullres=0", net_png,
+                           {"X-Hints": json.dumps(full_hints[:4])})
+    conc_hints = [session_hints(3, seed=40 + i) for i in range(8)]
+    conc = [None] * 8
+    before = svc.batcher.dispatches
+
+    def one(i):
+        conc[i] = request(srv, "colorize_netres_x8", "POST",
+                          "/colorize?fullres=0", net_png,
+                          {"X-Hints": json.dumps(conc_hints[i])})
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    coalesced = svc.batcher.dispatches - before
+    if any(c is None or c[0] != 200 for c in conc) or not 1 <= coalesced < 8:
+        die(f"server: 8 concurrent net-res requests: "
+            f"{[c and c[0] for c in conc]}, {coalesced} batched forwards")
+    replies["fast"] = ok(srv, "colorize_fast", "POST", "/colorize?model=fast",
+                         encode_png(image(14, 240, 320)))
+    states["fast"] = own_state(svc.model_fast)
+    sess_img = image(5, *FULLRES_HW)
+    sid = json.loads(ok(srv, "session_open", "POST", "/session",
+                        encode_png(sess_img)))["id"]
+    clicks = session_hints(10)
+    for i in range(1, len(clicks) + 1):
+        replies[f"click{i}"] = ok(srv, "session_click", "POST",
+                                  f"/session/click?id={sid}",
+                                  json.dumps(clicks[:i]).encode())
+    replies["click_fullres"] = ok(srv, "session_click_fullres", "POST",
+                                  f"/session/click?id={sid}&fullres=1",
+                                  json.dumps(clicks).encode())
+    svc._dist._generator.manual_seed(11)
+    replies["session_suggest"] = json.loads(ok(
+        srv, "session_suggest", "POST",
+        f"/session/suggest?id={sid}&h={S // 3}&w={S // 2}&k={SUGGEST_K}",
+        json.dumps(clicks).encode()))
+    states["session"] = own_state(svc._sessions[sid])
+    # the session's image: full-res Lab and the net-res planes its clicks
+    # fed the shared graphs (which keep only weak references to them)
+    closed = [weakref.ref(getattr(svc._sessions[sid], k)) for k in
+              ("_dev_lab_fullres", "_dev_l_net", "_dev_l_mc")]
+    ok(srv, "session_close", "DELETE", f"/session?id={sid}")
+    gc.collect()
+    if any(r() is not None for r in closed):
+        die("server: a closed session's image is still held")
+    # two sessions clicked from two threads in turns, each against its own
+    # single-session frames
+    inter_imgs = [image(30 + i, 600, 450) for i in range(2)]
+    inter_ids = [json.loads(ok(srv, "session_open", "POST", "/session",
+                               encode_png(im)))["id"] for im in inter_imgs]
+    inter_hints = [session_hints(5, seed=50 + i) for i in range(2)]
+    inter_alone = [ok(srv, "session_click", "POST",
+                      f"/session/click?id={inter_ids[i]}",
+                      json.dumps(inter_hints[i]).encode()) for i in range(2)]
+    inter_got = {0: [], 1: []}
+
+    def clicker(i):
+        for _ in range(5):
+            inter_got[i].append(request(
+                srv, "session_click", "POST",
+                f"/session/click?id={inter_ids[i]}",
+                json.dumps(inter_hints[i]).encode()))
+
+    threads = [threading.Thread(target=clicker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    svc._dist._generator.manual_seed(12)
+    sug_img = image(15, 480, 640)
+    replies["suggest"] = json.loads(ok(
+        srv, "suggest", "POST",
+        f"/suggest?h={S // 4}&w={3 * S // 4}&k={SUGGEST_K}",
+        encode_png(sug_img), {"X-Hints": json.dumps(clicks[:3])}))
+    glob_img, glob_ref = image(16, 500, 375), image(6, 200, 300)
+    gbuf = io.BytesIO()
+    np.savez(gbuf, image=np.frombuffer(encode_png(glob_img), np.uint8),
+             ref=np.frombuffer(encode_png(glob_ref), np.uint8))
+    replies["global"] = ok(srv, "colorize_global", "POST",
+                           "/colorize_global", gbuf.getvalue())
+    states["global"] = own_state(svc._glob)
+    batch_imgs = np.stack([image(60 + i, S, S) for i in range(4)])
+    tabs = [hints.points_json_to_table(session_hints(2 * i, seed=70 + i), S)
+            for i in range(4)]
+    bbuf = io.BytesIO()
+    np.savez(bbuf, images=batch_imgs, boxes=np.stack([t[0] for t in tabs]),
+             values=np.stack([t[1] for t in tabs]),
+             counts=np.asarray([t[2] for t in tabs], np.int32))
+    with np.load(io.BytesIO(ok(srv, "colorize_batch", "POST",
+                               "/colorize_batch", bbuf.getvalue()))) as z:
+        replies["batch"] = z["frames"]
+    # bad requests: the JAX server's status codes (JPEG: 415, the card's
+    # machine has no OpenCV)
+    gray = encode_png(image(17, 64, 64))
+    bad = [("POST", "/colorize", b"not an image", None, 400),
+           ("POST", "/colorize?fullres=0", gray, {"X-Hints": "not json"},
+            400),
+           ("POST", "/colorize?fullres=0", gray,
+            {"X-Hints": '[{"y": 0, "x": 0, "ab": [1, 2], "radius": 999}]'},
+            400),
+           ("POST", "/colorize", b"\xff\xd8\xff\xe0 a jpeg", None,
+            400 if importlib.util.find_spec("cv2") else 415),
+           ("POST", "/colorize_batch", b"junk", None, 400),
+           ("POST", "/colorize_global", b"not-an-npz", None, 400),
+           ("POST", "/suggest?h=999&w=0", gray, None, 400),
+           ("POST", "/suggest?h=1&w=1&k=26", gray, None, 400),
+           ("POST", "/session/click?id=nope", b"[]", None, 404),
+           ("POST", "/session/click", b"[]", None, 400),
+           ("DELETE", "/session?id=nope", None, None, 404),
+           ("GET", "/nope", None, None, 404)]
+    for method, path, body, headers, want in bad:
+        st, data = request(srv, "bad", method, path, body, headers)
+        if st != want:
+            die(f"server: {method} {path} answered {st}, not {want}: "
+                f"{data[:200]!r}")
+    c = http.client.HTTPConnection(*srv.server_address, timeout=60)
+    c.putrequest("POST", "/colorize")
+    c.putheader("Content-Length", str(600 << 20))
+    c.endheaders()
+    if c.getresponse().status != 413:
+        die("server: an oversized body was not refused with 413")
+    stats = json.loads(ok(srv, "stats", "GET", "/stats"))
+    metrics = ok(srv, "metrics", "GET", "/metrics").decode()
+    if "ideepcolor_requests_total" not in metrics or \
+            'ideepcolor_stage_latency_ms{stage="session_click"' not in metrics:
+        die("server: /metrics lacks its counters")
+    # the bf16 server (the JAX package's default precision): ten clicks
+    srv16 = start()
+    sid16 = json.loads(ok(srv16, "session_open", "POST", "/session",
+                          encode_png(sess_img)))["id"]
+    bf16 = [ok(srv16, "session_click_bf16", "POST",
+               f"/session/click?id={sid16}",
+               json.dumps(clicks[:i]).encode())
+            for i in range(1, len(clicks) + 1)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    phase_launches = {k.name: k.launches for k in entries}
+    peak = torch.cuda.max_memory_allocated()
+    for s_ in (srv, srv16):
+        s_.shutdown()
+        s_.server_close()
+    print(f"server on the card: {wall:.2f} s (warmup {warm_s:.2f} s), "
+          f"launches {phase_launches}; peak device memory in the phase "
+          f"{peak / 2**30:.3f} GiB allocated ({mem_before / 2**30:.3f} "
+          f"held when it began)")
+    for k in server_entries:
+        if phase_launches[k.name] == 0:
+            die(f"kernel {k.name} was not launched on the server's path")
+
+    # -- every reply against the port's own API on the same inputs --
+    ref = ColorizeImageTorch(Xd=S)
+    ref.prep_net(path=WEIGHTS)
+    ref.load_image_array(big)
+    ab, mask = (np.zeros((2, S, S), np.float32),
+                np.zeros((1, S, S), np.float32))
+    hints.put_points_json(ab, mask, full_hints, S)
+    worst, spread = {}, []
+
+    def fullres_check(label, reply, state, want_full, want_net,
+                      bound=(FRAME_BOUND_LSB, FRAME_BOUND_SHARE)):
+        """A full-res reply is the fusion of its own model's kept ab, byte
+        for byte; that model's net frame is within the frame bound of the
+        API's. Against the API's full-res frame only the share of moved
+        pixels is held: the kept ab is the requantized ab of the net frame,
+        so a net byte that flipped (cuDNN's transposed convs differ in the
+        last bits between runs) moves it by up to about 0.6 at that pixel,
+        which the fusion spreads over the full-res pixels around it and the
+        sRGB curve near black turns into a few LSB there."""
+        l_full, out_ab, rh, rw, net = state
+        got = decode_image(reply)
+        own = P.fullres_fuse(l_full, out_ab, rh, rw).cpu().numpy()
+        if not np.array_equal(got, own):
+            die(f"{label}: the reply is not its model's own full-res frame")
+        worst[label] = frame_check(f"{label}, net frame", net, want_net,
+                                   *bound)
+        d = np.abs(got.astype(int) - want_full.astype(int)).max(-1)
+        spread.append((label, int(d.max()), float(np.mean(d != 0))))
+        if spread[-1][2] >= bound[1]:
+            die(f"{label} vs the API's full-res frame: {spread[-1][1:]} "
+                f"(bound: share < {bound[1]})")
+
+    fullres_check("server /colorize (full res)", replies["fullres"],
+                  states["fullres"], ref.net_forward_fullres(ab, mask),
+                  ref.output_rgb)
+    net_small = resize_u8_half_pixel(torch.from_numpy(net_img),
+                                     (S, S)).numpy()
+    ref.set_image(net_small)
+    tf32 = []
+    for label, reply, hs in [("netres", replies["netres"], full_hints[:4])] \
+            + [(f"batched{i}", conc[i][1], conc_hints[i]) for i in range(8)]:
+        want = ref.net_forward_table(*hints.points_json_to_table(hs, S))
+        tf32.append(B.frame_delta_stats(decode_image(reply), want))
+    b_lsb = max(t[0] for t in tf32)
+    b_equal = min(t[1] for t in tf32)
+    if b_lsb > TF32_BOUND["max_lsb"] or b_equal < TF32_BOUND["equal"]:
+        die(f"server: auto-batched frames vs f32 clicks: {b_lsb} LSB, "
+            f"{b_equal:.4f} equal (TF32_BOUND {TF32_BOUND})")
+    fast = ColorizeImageTorch(Xd=S)
+    fast.prep_net(path=fast_weights)
+    fast.load_image_array(image(14, 240, 320))
+    z_ab, z_mask = (np.zeros((2, S, S), np.float32),
+                    np.zeros((1, S, S), np.float32))
+    fullres_check("server /colorize?model=fast", replies["fast"],
+                  states["fast"],
+                  fast.net_forward_fullres(z_ab, z_mask), fast.output_rgb)
+    ref.load_image_array(sess_img)
+    click_ms = []
+    for i in range(1, len(clicks) + 1):
+        t0 = time.perf_counter()
+        want = ref.net_forward_table(*hints.points_json_to_table(
+            clicks[:i], S))
+        click_ms.append((time.perf_counter() - t0) * 1e3)
+        worst[f"click{i}"] = frame_check(
+            f"server session click {i}",
+            decode_image(replies[f"click{i}"]), want,
+            FRAME_BOUND_LSB, FRAME_BOUND_SHARE)
+        if i == len(clicks):
+            fullres_check("server session click ?fullres=1",
+                          replies["click_fullres"], states["session"],
+                          ref.get_img_fullres(), want)
+    table = hints.points_json_to_table(clicks, S)
+    for _ in range(30):
+        t0 = time.perf_counter()
+        ref.net_forward_table(*table)
+        click_ms.append((time.perf_counter() - t0) * 1e3)
+    for i in (0, 1):
+        for n, (st, data) in enumerate(inter_got[i]):
+            if st != 200:
+                die(f"server: interleaved session {i} click {n}: {st}")
+            worst[f"inter{i}_{n}"] = frame_check(
+                f"server interleaved session {i}, click {n}",
+                decode_image(data), decode_image(inter_alone[i]),
+                FRAME_BOUND_LSB, FRAME_BOUND_SHARE)
+    # the suggestions: the dist class on the same image, table and seed
+    d = ColorizeImageTorchDist(Xd=S)
+    d.prep_net(path=WEIGHTS)
+    sug_err = []
+    for key, img, hs, h, w, seed in (
+            ("session_suggest", sess_img, clicks, S // 3, S // 2, 11),
+            ("suggest", sug_img, clicks[:3], S // 4, 3 * S // 4, 12)):
+        d.load_image_array(img)
+        table = hints.points_json_to_table(hs, S)
+        # the first call captures (its warm-up runs draw numbers); the
+        # server's graph was captured in warmup: compare replay with replay
+        d.suggest_table(*table, h=h, w=w, K=SUGGEST_K)
+        d._generator.manual_seed(seed)
+        colors, conf = d.suggest_table(*table, h=h, w=w, K=SUGGEST_K)
+        got = replies[key]
+        g_colors = np.asarray(got["colors"], np.int64)
+        g_conf = np.asarray(got["conf"])
+        if g_colors.shape != (SUGGEST_K, 3) or abs(g_conf.sum() - 1) > 1e-4 \
+                or np.any(np.diff(g_conf) > 1e-6):
+            die(f"server /{key}: colors {g_colors.shape}, conf {g_conf}")
+        sug_err.append((key, int(np.abs(g_colors - colors).max()),
+                        float(np.abs(g_conf - conf).max())))
+        if sug_err[-1][1] > SUGGEST_BOUND[0] or \
+                sug_err[-1][2] > SUGGEST_BOUND[1]:
+            die(f"server /{key} vs suggest_table on the same seed: "
+                f"{sug_err[-1][1:]} (bound {SUGGEST_BOUND})")
+    g = ColorizeImageTorchCaffeGlobDist(Xd=S)
+    g.prep_net(caffemodel_path=glob_weights)
+    ref_small = resize_u8_half_pixel(torch.from_numpy(glob_ref), (S, S))
+    hist = global_stats.extract(g._to_dev(ref_small).to(torch.float32)
+                                / 255.0)["glob_ab_313"].cpu().numpy()
+    g.load_image_array(glob_img)
+    fullres_check("server /colorize_global", replies["global"],
+                  states["global"],
+                  g.net_forward_fullres(z_ab, z_mask, hist), g.output_rgb,
+                  (CAFFE_FRAME_BOUND_LSB, CAFFE_FRAME_BOUND_SHARE))
+    batch_stats = []
+    for i in range(4):
+        ref.set_image(batch_imgs[i])
+        batch_stats.append(B.frame_delta_stats(
+            replies["batch"][i], ref.net_forward_table(*tabs[i])))
+    bb_lsb = max(t[0] for t in batch_stats)
+    bb_equal = min(t[1] for t in batch_stats)
+    if bb_lsb > TF32_BOUND["max_lsb"] or bb_equal < TF32_BOUND["equal"]:
+        die(f"server /colorize_batch vs f32 clicks: {bb_lsb} LSB, "
+            f"{bb_equal:.4f} equal (TF32_BOUND {TF32_BOUND})")
+    bf_stats = [B.frame_delta_stats(decode_image(b),
+                                    decode_image(replies[f"click{i}"]))
+                for i, b in enumerate(bf16, 1)]
+
+    def psnr(a, b):
+        mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+        return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+    bf_psnr = min(psnr(decode_image(b), decode_image(replies[f"click{i}"]))
+                  for i, b in enumerate(bf16, 1))
+    bf_lsb = max(t[0] for t in bf_stats)
+    bf_equal = min(t[1] for t in bf_stats)
+    if bf_lsb > BF16_BOUND["max_lsb"] or bf_equal < BF16_BOUND["equal"] \
+            or bf_psnr < BF16_BOUND["psnr"]:
+        die(f"server bf16 clicks vs f32 clicks: {bf_lsb} LSB, {bf_equal:.4f}"
+            f" equal, {bf_psnr:.2f} dB (BF16_BOUND {BF16_BOUND})")
+    glob_key = "server /colorize_global"
+    print(f"server replies vs the API on the same inputs: the four full-res "
+          f"replies are their models' own fusions byte for byte; net frames "
+          f"(full-res, fast tier, 10 session clicks + a full-res click, 2 x "
+          f"5 interleaved clicks) within {FRAME_BOUND_LSB} LSB on at most "
+          f"{max(v for k, v in worst.items() if k != glob_key):.2e} of the "
+          f"pixels (bound {FRAME_BOUND_SHARE}); global net frame "
+          f"{worst[glob_key]:.2e} (bound {CAFFE_FRAME_BOUND_SHARE}); "
+          f"full-res replies vs the API's full-res frames (max LSB, share "
+          f"moved; the share bounded): {spread}; "
+          f"auto-batched (9 frames, {coalesced} batched forwards for 8 "
+          f"concurrent) max {b_lsb} LSB, {b_equal:.4f} equal; "
+          f"/colorize_batch N=4 max {bb_lsb} LSB, {bb_equal:.4f} equal "
+          f"(TF32_BOUND); bf16 server vs f32 server, 10 clicks: max "
+          f"{bf_lsb} LSB, {bf_equal:.4f} equal, {bf_psnr:.2f} dB "
+          f"(BF16_BOUND); suggestions vs suggest_table on the same seed "
+          f"(max |d color| LSB, max |d conf|; bound {SUGGEST_BOUND}): "
+          f"{sug_err}")
+    # where a reply's host time goes, each piece alone (host clock)
+    small = decode_image(replies["click10"])
+    alone = {
+        "encode_png 256x256": lambda: encode_png(small),
+        "decode_image 400x300": lambda: decode_image(net_png),
+        "resize 400x300 -> 256 (host)": lambda: resize_u8_half_pixel(
+            torch.from_numpy(net_img), (S, S)),
+        "colorize_batch_table N=1 (TF32)": lambda: B.colorize_batch_table(
+            ref.net, batch_imgs[:1], np.stack([tabs[0][0]]),
+            np.stack([tabs[0][1]]), np.asarray([tabs[0][2]], np.int32)),
+        "colorize_batch_table N=4 (TF32)": lambda: B.colorize_batch_table(
+            ref.net, batch_imgs, np.stack([t[0] for t in tabs]),
+            np.stack([t[1] for t in tabs]),
+            np.asarray([t[2] for t in tabs], np.int32)),
+    }
+    for label, fn in alone.items():
+        fn()
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        print(f"  alone: {label:34s} p50 {np.median(ts):8.3f} ms")
+    for key, s in sorted(stats["latency"].items()):
+        print(f"  server stage {key:24s} n {s['n']:3d} p50 "
+              f"{s['p50_ms']:8.3f} ms p95 {s['p95_ms']:8.3f} ms")
+    for key, xs in sorted(rtt.items()):
+        ms = np.array(xs) * 1e3
+        print(f"  HTTP round trip {key:22s} n {len(ms):3d} p50 "
+              f"{np.percentile(ms, 50):8.3f} ms p95 "
+              f"{np.percentile(ms, 95):8.3f} ms")
+    sc = np.array(rtt["session_click"]) * 1e3
+    print(f"session click over HTTP (f32, captured): p50 "
+          f"{np.percentile(sc, 50):.3f} ms against the in-process captured "
+          f"table click's {np.percentile(click_ms, 50):.3f} ms in this run; "
+          f"auto_batch {stats['auto_batch']}")
+    return phase_launches
 
 
 def main() -> int:
@@ -2006,12 +2556,14 @@ def main() -> int:
           f"{psnr(bf_frame, f32_frame):.2f} dB, max |d output_ab| "
           f"{np.abs(bfm.output_ab - cfm.output_ab).max():.3f} (printed, not "
           f"bounded: a random-weight net; BF16_BOUND is the teacher's)")
-    print(f"peak device memory at the end of the run: "
+    print(f"peak device memory at the end of the Caffe path: "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB allocated, "
           f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB reserved")
+    # 12. the HTTP server on the card (fifth launch count)
+    server_launches = server_phase(entries, wpath["global"])
     tmp.cleanup()
 
-    # 12. the kernels line
+    # 13. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -2020,14 +2572,16 @@ def main() -> int:
             "replaces": k.replaces,
             "launches": (launches[k.name] + dist_launches[k.name]
                          + engine_launches[k.name]
-                         + caffe_launches[k.name]),
+                         + caffe_launches[k.name]
+                         + server_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
             "launches_caffe_path": caffe_launches[k.name],
+            "launches_server": server_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 13.
+    # 14.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

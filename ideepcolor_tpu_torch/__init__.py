@@ -8,7 +8,9 @@ held against. It imports torch and numpy, never jax, and nothing of
              ColorizeImageTorchCaffe, ColorizeImageTorchCaffeDist and
              ColorizeImageTorchCaffeGlobDist (the Caffe family), all on the
              ColorizeImageBase contract
-  apps/      the two notebook sessions as functions (demos)
+  apps/      the two notebook sessions as functions (demos), the HTTP
+             server (serve) and its browser page (webui)
+  config     ColorizeConfig and make_backend over the five API classes
   data/      the ab bin tables; the host-facing gamut helpers (no Qt)
   engine/    the click, window, suggestion and full-res programs
              (pipeline), their form on the card as captured CUDA graphs
@@ -21,6 +23,9 @@ held against. It imports torch and numpy, never jax, and nothing of
   ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
              holds the hand-written kernels (sources in csrc/),
              counterparts of ops/pallas
+  utils/     array and image-grid helpers, stage timers and device traces,
+             session dumps and weight files, the soak-load generator, the
+             port's own PNG codec (imageio)
 
 The histogram-transfer session::
 
@@ -35,7 +40,7 @@ The histogram-transfer session::
 Not ported yet: the ``abq`` and ``*_host`` click variants with the
 packed-row click+suggest program (they wait for the native host ops), the
 sharded (``mesh=``) forms of the batch engine, training, and the apps other
-than the demos (serve, video, eval, the GUI's control).
+than the demos and the server (video, eval, the GUI's control).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -456,6 +456,9 @@ class ColorizeImageBase:
         self._dev_l_mc = P.center_plane(self._dev_lab_net, self.l_mean,
                                         self.l_norm)     # (Xd, Xd, 1)
         self.img_l_set = True
+        self._img_lab_mc_np = None
+
+    _set_img_l_ = _set_img_lab_mc_
 
     @property
     def img_lab_fullres(self):
@@ -472,6 +475,10 @@ class ColorizeImageBase:
         return self.img_lab_fullres[[0]]
 
     @property
+    def img_ab_fullres(self):
+        return self.img_lab_fullres[1:]
+
+    @property
     def img_lab(self):
         if getattr(self, "_img_lab_np", None) is None:
             self._img_lab_np = self._dev_lab_net.permute(2, 0, 1).cpu().numpy()
@@ -484,6 +491,25 @@ class ColorizeImageBase:
     @property
     def img_ab(self):
         return self.img_lab[1:]
+
+    @property
+    def img_lab_mc(self):
+        """(3, Xd, Xd) mean-centered, normalized Lab: (Lab - mean) / norm
+        per channel, the net's input convention, made on first read."""
+        if getattr(self, "_img_lab_mc_np", None) is None:
+            norm = np.array([self.l_norm, self.ab_norm, self.ab_norm])
+            mean = np.array([self.l_mean, self.ab_mean, self.ab_mean])
+            self._img_lab_mc_np = (self.img_lab / norm[:, None, None]
+                                   - (mean / norm)[:, None, None])
+        return self._img_lab_mc_np
+
+    @property
+    def img_l_mc(self):
+        return self.img_lab_mc[[0]]
+
+    @property
+    def img_ab_mc(self):
+        return self.img_lab_mc[[1, 2]]
 
     def _set_out_ab_(self):
         # output_ab is the ab of the QUANTIZED uint8 frame's own Lab

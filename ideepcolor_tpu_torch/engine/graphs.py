@@ -15,7 +15,9 @@ What a graph fixes, and what this module does about it:
 * addresses. A graph reads and writes the buffers it was captured with. A
   tensor argument is copied into the program's own input buffer before each
   replay (skipped while the caller passes the same, unmodified tensor: the
-  image state and the window's L and matrices change rarely). An argument
+  image state and the window's L and matrices change rarely; the program
+  holds only a weak reference to it, so a closed session's tensors are
+  freed although its model's copies share the program). An argument
   wrapped in :class:`Fixed` is used where it lies and never copied: the
   device twin of :class:`TableStage`, which a click refills in place.
 * scalars. A by-value kernel argument or a Python index would be frozen at
@@ -39,6 +41,8 @@ No fallback: a capture that fails raises; nothing retries eagerly.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -109,8 +113,8 @@ class GraphProgram:
                 bufs.append(a.clone())
             else:
                 bufs.append(a)           # a generator: held, so its id stays
-            last.append((a, a._version) if isinstance(a, torch.Tensor)
-                        else None)
+            last.append((weakref.ref(a), a._version)
+                        if isinstance(a, torch.Tensor) else None)
         current = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(current)
@@ -145,10 +149,10 @@ class GraphProgram:
             if not isinstance(a, torch.Tensor):
                 continue
             last = cap.last[i]
-            if last[0] is a and last[1] == a._version:
+            if last[0]() is a and last[1] == a._version:
                 continue
             cap.bufs[i].copy_(a, non_blocking=True)
-            cap.last[i] = (a, a._version)
+            cap.last[i] = (weakref.ref(a), a._version)
         cap.graph.replay()
         for k, n in cap.nodes:
             k.launches += n

@@ -26,6 +26,7 @@ relayout. Details carried over exactly:
 
 from __future__ import annotations
 
+import os
 from typing import Mapping
 
 import numpy as np
@@ -262,7 +263,19 @@ def state_dict_from_params(params: Mapping[str, np.ndarray]
 def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
     """Load a SIGGRAPH checkpoint -- ``.npz`` in either layout (f16 storage
     is cast to f32), or a torch ``.pth``/``.pt`` state dict -- as this
-    module's state dict."""
+    module's state dict.
+
+    Two forms the JAX package's loader takes are refused: an orbax
+    directory (reading one needs JAX; export it to ``.npz`` with the JAX
+    package's ``utils/session.save_params_npz``) and a pickled module (a
+    ``.pth`` is read with ``weights_only=True``, which unpickles tensors and
+    containers only)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, an orbax checkpoint of the JAX package: "
+            f"reading one needs JAX. Export it to .npz with the JAX "
+            f"package's utils/session.save_params_npz (for a train state, "
+            f"its params) and load that file")
     if path.endswith(".npz"):
         with np.load(path) as z:
             arrays = {k: z[k] for k in z.files}

@@ -53,6 +53,38 @@ def put_point(input_ab: np.ndarray, mask: np.ndarray, loc, p, val):
     return input_ab, mask
 
 
+def _clamped_point(h, size: int) -> tuple[int, int, int]:
+    """One hint dict -> (y, x, radius), the center clamped so the whole
+    (2p+1)^2 box lies inside the frame. Raises ValueError on a radius out of
+    range; other malformed entries raise what the JAX functions raise
+    (KeyError, TypeError, AttributeError)."""
+    p = int(h.get("radius", 3))
+    if not 0 <= p < size // 2:
+        raise ValueError(f"hint radius {p} out of range")
+    y = min(max(int(h["y"]), p), size - 1 - p)
+    x = min(max(int(h["x"]), p), size - 1 - p)
+    return y, x, p
+
+
+def put_points_json(input_ab: np.ndarray, mask: np.ndarray, hints,
+                    size: int):
+    """Apply a serve-style hint list of {"y", "x", "ab": [a, b], "radius"}
+    dicts to channel-first (2,H,W) ab and (1,H,W) mask arrays in place, with
+    validation and edge clamping (``put_point``'s raw slice starts would
+    write nothing for a point within ``radius`` of the top or left edge).
+    Raises ValueError on malformed payloads. The dense counterpart of
+    :func:`points_json_to_table`: both rasterize the same boxes."""
+    if hints is None:
+        return input_ab, mask
+    if not isinstance(hints, list):
+        raise ValueError("hints must be a JSON list of point dicts")
+    for h in hints:
+        y, x, p = _clamped_point(h, size)
+        put_point(input_ab, mask, [y, x], p,
+                  [float(h["ab"][0]), float(h["ab"][1])])
+    return input_ab, mask
+
+
 def points_json_to_table(hints, size: int):
     """Serve-style hint list of {"y", "x", "ab": [a, b], "radius"} dicts ->
     (boxes, values, count) numpy table, with validation and edge clamping
@@ -67,11 +99,7 @@ def points_json_to_table(hints, size: int):
     if len(hints) > MAX_HINTS:
         return None
     for i, h in enumerate(hints):
-        p = int(h.get("radius", 3))
-        if not 0 <= p < size // 2:
-            raise ValueError(f"hint radius {p} out of range")
-        y = min(max(int(h["y"]), p), size - 1 - p)
-        x = min(max(int(h["x"]), p), size - 1 - p)
+        y, x, p = _clamped_point(h, size)
         boxes[i] = [y - p, x - p, y + p, x + p]
         values[i] = [float(h["ab"][0]), float(h["ab"][1])]
     return boxes, values, len(hints)
