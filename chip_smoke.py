@@ -152,11 +152,33 @@ or more each; any failure exits non-zero:
    endpoint's HTTP round trip, the session click over HTTP against the
    in-process captured click, the host pieces of a reply timed alone, and
    the phase's peak device memory;
-13. one JSON line listing each kernel entry with its launches on the five
+13. training, distillation and evaluation (``train/``, ``apps/train.py``,
+   ``apps/eval.py``), the sixth path, with launch counts of its own: a
+   seeded corpus of 16 training and 8 held-out PNG images (288-400 px, some
+   not square); one f32 train step of the teacher at batch 2, 64x64, on the
+   card and on a CPU twin from the same weights and hints (the hint
+   sampler's core on the card equal to the CPU's), held to the TRAIN_*
+   bounds below; the step at the train CLI's defaults (full width, TF32,
+   batch 16 at 176x176, rematerialized, a device-resident corpus with color
+   jitter): p50 / p95 on the host clock, images/s, the peak memory, device
+   busy and idle share and where the device time goes from the profiler,
+   the augmentation and the hint sampler timed alone, 5 f32 steps for
+   information; 30 steps on one fixed batch of a seeded w0.5 net cutting
+   the loss by more than 40%; save -> load -> step byte-equal to the step
+   taken straight through under deterministic convolutions; ``apps/train``
+   run twice (a fine-tune of the teacher, a w0.5 distillation, 10 steps
+   each, exported); ``apps/eval``'s ``evaluate`` (the teacher on the 8
+   held-out images at 256, counts 0-25), ``hint_fidelity`` and
+   ``save_colorization_grid``, whose renders K2's batched entry composes
+   (it must launch; K1 must not); the counts are read there. Then a CPU
+   twin of the eval with the same hint locations (the curve within
+   EVAL_DB_BOUND per count, the fidelity within FID_*), and each export
+   loaded by ``prep_net`` for a table click;
+14. one JSON line listing each kernel entry with its launches on the six
    paths, its error against the plain version, its time, the plain
    version's, its bound and what sets it, and the shape and plane layout
    those numbers were measured at;
-14. last line: {"ok": true, "device": {...}}.
+15. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -221,6 +243,28 @@ CAFFE_SEED = 21              # of the three seeded weight sets
 # |d color| in LSB, max |d conf|. The dist forward's cuDNN kernels differ in
 # the last bits between two runs, which may move a sample's bin
 SUGGEST_BOUND = (2, 1e-3)
+# phase 13: one f32 train step of the teacher (batch 2 at 64x64), card vs
+# its CPU twin on the same weights and hints: loss (relative), weights after
+# the step in units of lr (a first Adam step moves a weight by about
+# lr sign(g), so a gradient near 0 whose sign differs gives 2 lr), and the
+# share of weights more than 1e-3 lr apart: Adam divides each gradient by
+# its own magnitude, so weights with gradients near its eps (1e-8) carry
+# the convs' last-bit differences up (measured on an H100: 1.09e-7, 1.54
+# lr, 4.06e-2)
+TRAIN_LOSS_BOUND = 1e-5
+TRAIN_DW_BOUND = 2.001
+TRAIN_DW_SHARE = 0.1
+TRAIN_BATCH, TRAIN_SIZE = 16, 176     # the train CLI's defaults
+TRAIN_STEPS = 20                      # timed, after 3 of warm-up
+CLI_STEPS = 10
+EVAL_SIZE = 256
+EVAL_COUNTS = (0, 1, 2, 5, 10, 25)
+# the eval's curve card vs CPU per count (dB), the fidelity's ΔE and radii
+# (rounded by hint_fidelity to 1e-3 and 0.1 px; measured on an H100:
+# 9.54e-7 dB, both equal)
+EVAL_DB_BOUND = 0.01
+FID_DE_BOUND = 0.01
+FID_RADIUS_BOUND = 0.2
 
 
 def die(msg: str) -> None:
@@ -885,6 +929,348 @@ def server_phase(entries, glob_weights: str) -> dict:
           f"{np.percentile(sc, 50):.3f} ms against the in-process captured "
           f"table click's {np.percentile(click_ms, 50):.3f} ms in this run; "
           f"auto_batch {stats['auto_batch']}")
+    return phase_launches
+
+
+def train_phase(entries, dev) -> dict:
+    """Phase 13: training, distillation and evaluation on ``dev`` (the
+    card; "cpu" rehearses the phase's control flow). Returns the phase's
+    launches per kernel entry (the sixth count), read before the exported
+    weights are clicked."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ideepcolor_tpu_torch.api import ColorizeImageTorch
+    from ideepcolor_tpu_torch.apps import eval as ev
+    from ideepcolor_tpu_torch.apps import train as train_cli
+    from ideepcolor_tpu_torch.models import siggraph
+    from ideepcolor_tpu_torch.ops import hints
+    from ideepcolor_tpu_torch.ops.colorspace import rgb_to_lab
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.resize import resize_u8_pil_bilinear
+    from ideepcolor_tpu_torch.train import device_data as DD
+    from ideepcolor_tpu_torch.train import hints_sim as HS
+    from ideepcolor_tpu_torch.train import step as TS
+    from ideepcolor_tpu_torch.utils.imageio import encode_png
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    for k in entries:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    # a. the corpus: 16 training and 8 held-out seeded images, PNG
+    rng = np.random.default_rng(13)
+    dirs = {"train": 16, "held": 8}
+    for name, n in dirs.items():
+        os.makedirs(os.path.join(tmp.name, name))
+        for i in range(n):
+            H, W = (int(v) for v in rng.integers(288, 401, 2))
+            W = H if i % 4 == 0 else W
+            with open(os.path.join(tmp.name, name, f"{i:02d}.png"),
+                      "wb") as f:
+                f.write(encode_png(image(1300 + 50 * (name == "held") + i,
+                                         H, W)))
+    corpus = os.path.join(tmp.name, "train")
+    held = os.path.join(tmp.name, "held")
+    teacher_sd = siggraph.load_state_dict_file(WEIGHTS)
+
+    # b. one f32 step of the teacher, batch 2 at 64x64, on dev and the CPU
+    small = [resize_u8_pil_bilinear(image(1400 + i, 300, 340), (64, 64))
+             for i in range(2)]
+    lab = rgb_to_lab(torch.from_numpy(np.stack(small)).float() / 255.0)
+    batch = {"l": lab[..., :1].permute(0, 3, 1, 2).contiguous(),
+             "ab": lab[..., 1:].permute(0, 3, 1, 2).contiguous()}
+    g = torch.Generator().manual_seed(7)
+    draws = (torch.rand((2, HS.MAX_POINTS), generator=g),
+             torch.randn((2, HS.MAX_POINTS, 2), generator=g),
+             torch.randint(0, 5, (2, HS.MAX_POINTS), generator=g),
+             torch.zeros(2, dtype=torch.bool))
+    cfg = TS.TrainConfig(precision_name="highest")
+    twin = {}
+    for d in (dev, torch.device("cpu")):
+        b = {k: v.to(d) for k, v in batch.items()}
+        h = HS.hints_from_draws(b["ab"], *(t.to(d) for t in draws))
+        st = TS.init_state(cfg, teacher_sd, device=d)
+        t0 = time.perf_counter()
+        st, aux = TS.make_train_step(cfg)(st, b, hints=h)
+        sync()
+        twin[d.type] = (float(aux["loss"]),
+                        {k: v.detach().cpu() for k, v in
+                         st["params"].items()},
+                        [t.cpu() for t in h], time.perf_counter() - t0)
+        del st
+    (lc, pc, hc, sc), (lp, pp, hp, sp) = twin[dev.type], twin["cpu"]
+    if not torch.equal(hc[1], hp[1]) or float((hc[0] - hp[0]).abs().max()) \
+            > 1e-4:
+        die("hint sampler core: the card's hints differ from the CPU's")
+    loss_rel = abs(lc - lp) / abs(lp)
+    dw = torch.cat([(pc[k] - pp[k]).abs().flatten() for k in pp]) / cfg.lr
+    dw_max = float(dw.max())
+    dw_share = float((dw > 1e-3).double().mean())
+    print(f"train step, teacher f32 (highest), batch 2 at 64x64, same "
+          f"weights and hints: loss {lc:.6f} on {dev.type} vs {lp:.6f} on "
+          f"the CPU (relative {loss_rel:.2e}, bound {TRAIN_LOSS_BOUND}); "
+          f"weights after the step: max |dw| {dw_max:.4f} lr (bound "
+          f"{TRAIN_DW_BOUND} lr), {dw_share:.3e} of the {dw.numel()} "
+          f"weights more than 1e-3 lr apart (bound {TRAIN_DW_SHARE}); "
+          f"{dev.type} step {sc:.2f} s (first call), CPU {sp:.2f} s")
+    if loss_rel > TRAIN_LOSS_BOUND or dw_max > TRAIN_DW_BOUND \
+            or dw_share > TRAIN_DW_SHARE:
+        die("train step: card and CPU disagree past the bounds")
+
+    # c. throughput at the CLI's defaults: full width, TF32, remat,
+    # device-resident corpus with color jitter, batch and size below
+    cfg = TS.TrainConfig()
+    held_before = torch.cuda.memory_allocated() / 2**30 if on_card else 0.0
+    state = TS.init_state(cfg, teacher_sd, device=dev)
+    ds = DD.DeviceDataset(corpus, batch_size=TRAIN_BATCH, size=TRAIN_SIZE,
+                          seed=0, device=dev)
+    train = TS.make_train_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def one(step_fn=train):
+        return step_fn(state, next(ds), gen)[1]
+
+    for _ in range(3):
+        one()
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        aux = one()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(aux["loss"]))
+    if not np.all(np.isfinite(losses)):
+        die(f"train step: loss not finite: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    p50, p95 = np.percentile(times, 50), np.percentile(times, 95)
+    print(f"train step, teacher (34.2 M parameters) fine-tuned at TF32, "
+          f"batch {TRAIN_BATCH} at {TRAIN_SIZE}x{TRAIN_SIZE}, remat, "
+          f"device-resident corpus, {TRAIN_STEPS} steps after 3 (host "
+          f"clock, synchronized): p50 {p50:.3f} ms, p95 {p95:.3f} ms, "
+          f"{TRAIN_BATCH * 1e3 / np.mean(times):.1f} images/s; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak device memory "
+          f"{peak:.3f} GiB allocated in the steps, {held_before:.3f} GiB of "
+          f"it held before the train state was made")
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+
+    def kind(name):
+        n = name.lower()
+        for tag, words in (("wgrad", ("wgrad",)), ("dgrad", ("dgrad",)),
+                           ("layout NCHW <-> NHWC", ("nchwtonhwc",
+                                                     "nhwctonchw")),
+                           ("adam", ("adam", "multi_tensor")),
+                           ("conv fprop and GEMM",
+                            ("fprop", "conv", "gemm", "xmma", "cutlass",
+                             "cudnn", "winograd")),
+                           ("copy", ("memcpy", "memset", "copy"))):
+            if any(w in n for w in words):
+                return tag
+        return "elementwise, reductions, gathers"
+
+    by_kind: dict = {}
+    for e in kern:
+        by_kind[kind(e.key)] = by_kind.get(kind(e.key), 0.0) \
+            + e.self_device_time_total / 5e3
+    launches = sum(e.count for e in kern) / 5
+    print(f"train step under the profiler (5 steps): device busy "
+          f"{busy / 5:.3f} ms per step of {wall / 5:.3f} ms, idle share "
+          f"{1 - busy / max(wall, 1e-9):.3f} (against the unprofiled p50: "
+          f"{1 - busy / 5 / p50:.3f}); {launches:.0f} device kernels "
+          f"per step; by kind (ms per step): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"  {e.self_device_time_total / 5e3:9.3f} ms/step "
+              f"{e.count // 5:4d}x  {e.key[:100]}")
+    b = next(ds)
+    alone = {"augmentation (sample_batch)": lambda: next(ds),
+             "hint sampler (sample_hints)":
+                 lambda: HS.sample_hints(b["ab"], gen)}
+    for label, fn in alone.items():
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        sync()
+        print(f"  alone: {label:30s} {(time.perf_counter() - t0) * 100:.3f} "
+              f"ms per call (host clock, 10 calls)")
+    cfg32 = TS.TrainConfig(precision_name="highest")
+    train32 = TS.make_train_step(cfg32)
+    one(train32)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one(train32)
+    sync()
+    print(f"train step at f32 (highest), same shapes, 5 steps: "
+          f"{(time.perf_counter() - t0) * 200:.3f} ms per step (for "
+          f"information)")
+    del state
+    # 30 steps on one fixed batch, seeded width-0.5 init, lr 3e-3
+    cfg = TS.TrainConfig(lr=3e-3, remat=False)
+    state = TS.init_state(cfg, siggraph.init_state_dict(0.5, 11), device=dev)
+    fixed = {k: v[:2, :, :32, :32].contiguous() for k, v in b.items()}
+    h = HS.sample_hints(fixed["ab"], torch.Generator(device=dev)
+                        .manual_seed(100))
+    fit = TS.make_train_step(cfg)
+    seen = [float(fit(state, fixed, hints=h)[1]["loss"]) for _ in range(30)]
+    print(f"30 steps on one fixed batch of 2 at 32x32 (w0.5, lr 3e-3): loss "
+          f"{seen[0]:.4f} "
+          f"-> {seen[-1]:.4f} ({seen[-1] / seen[0]:.3f} of the first)")
+    if not seen[-1] < 0.6 * seen[0]:
+        die("train step: 30 steps on a fixed batch did not cut the loss by "
+            "40%")
+    del state
+
+    # d. save and resume: under deterministic convolutions the resumed step
+    # equals the step taken straight through, byte for byte
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = TS.TrainConfig(schedule="cosine", warmup_steps=1,
+                             total_steps=4)
+        state = TS.init_state(cfg, teacher_sd, device=dev)
+        train = TS.make_train_step(cfg)
+        batches = [DD.sample_batch(ds._dev, torch.Generator(device=dev)
+                                   .manual_seed(i), 4, 64) for i in range(3)]
+
+        def step_i(st, i):
+            return train(st, batches[i], torch.Generator(device=dev)
+                         .manual_seed(100 + i))[1]
+
+        step_i(state, 0)
+        step_i(state, 1)
+        path = os.path.join(tmp.name, "state.pt")
+        TS.save_train_state(path, state)
+        want = float(step_i(state, 2)["loss"])
+        resumed = TS.load_train_state(path, cfg, dev)
+        got = float(step_i(resumed, 2)["loss"])
+        same = all(torch.equal(resumed["params"][k], v)
+                   for k, v in state["params"].items())
+        if got != want or not same or resumed["step"] != 3:
+            die(f"save / resume: loss {got} vs {want}, weights equal "
+                f"{same}, step {resumed['step']}")
+        del state, resumed
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print("save -> load -> step under cudnn.deterministic: loss and every "
+          "weight byte-equal to the step taken straight through (cosine "
+          "schedule, count restored)")
+
+    # e. the CLIs: a fine-tune and a distillation, 10 steps each, exported
+    dev_arg = [] if on_card else ["--device", "cpu"]
+    exports = {}
+    for label, extra in (("fine-tune", ["--init-from", WEIGHTS]),
+                         ("distill w0.5", ["--distill-from", WEIGHTS,
+                                           "--width", "0.5"])):
+        out = os.path.join(tmp.name, label.split()[0] + ".npz")
+        t0 = time.perf_counter()
+        rc = train_cli.main([corpus, "--steps", str(CLI_STEPS), "--batch",
+                             str(TRAIN_BATCH), "--size", str(TRAIN_SIZE),
+                             "--ckpt", os.path.join(tmp.name, "ck"),
+                             "--ckpt-every", str(CLI_STEPS), "--log-every",
+                             "5", "--export", out] + extra + dev_arg)
+        sync()
+        if rc != 0:
+            die(f"apps/train {label}: exit {rc}")
+        exports[label] = out
+        print(f"apps/train {label}: {CLI_STEPS} steps and the export in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+    # f. eval of the teacher on the held-out images; K2's batched entry
+    # composes every render
+    net = siggraph.as_module(teacher_sd, dev)
+    images = ev.load_eval_images(held, EVAL_SIZE)
+    t0 = time.perf_counter()
+    curve, per = ev.evaluate(net, images, EVAL_COUNTS, batch=8,
+                             return_per_image=True, device=dev)
+    sync()
+    first_s = time.perf_counter() - t0
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ev.evaluate(net, images, EVAL_COUNTS, batch=8, device=dev)
+        sync()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    fid = ev.hint_fidelity(net, images, batch=8, device=dev)
+    fid4 = ev.hint_fidelity(net, images[:4], batch=4, counts=(1, 5),
+                            device=dev)
+    grid = ev.save_colorization_grid(net, images, EVAL_COUNTS,
+                                     os.path.join(tmp.name, "grid.png"),
+                                     device=dev)
+    sync()
+    phase_launches = {k.name: k.launches for k in entries}
+    n_chunks = -(-len(images) // 8)
+    print(f"eval of the teacher, {len(images)} held-out images at "
+          f"{EVAL_SIZE}, counts {EVAL_COUNTS}, batch 8: "
+          f"{np.median(reps) / n_chunks:.3f} ms per chunk of 8 images and "
+          f"{len(EVAL_COUNTS)} counts (host clock, median of 3; the first "
+          f"call {first_s:.2f} s); curve "
+          + ", ".join(f"{k}: {v:.3f} dB" for k, v in curve.items())
+          + f"; AUC {ev.curve_auc(curve):.3f} dB; fidelity {fid}; contact "
+          f"sheet {os.path.getsize(grid)} bytes")
+    print(f"train and eval on {dev.type}: {time.perf_counter() - t_phase:.1f}"
+          f" s; launches {phase_launches}")
+    if on_card:
+        if phase_launches[k2.KERNEL_BATCH.name] == 0:
+            die("kernel lab_to_rgb_u8_batch was not launched by the eval")
+        busy_k = [k.name for k in entries if k.launches
+                  and k is not k2.KERNEL_BATCH]
+        if busy_k:
+            die(f"kernels {busy_k} launched on the train and eval path")
+
+    # the eval against a CPU twin with the same hint locations
+    cpu_net = siggraph.as_module(teacher_sd, "cpu")
+    t0 = time.perf_counter()
+    curve_c = ev.evaluate(cpu_net, images, EVAL_COUNTS, batch=8,
+                          device="cpu")
+    fid4_c = ev.hint_fidelity(cpu_net, images[:4], batch=4, counts=(1, 5),
+                              device="cpu")
+    cpu_s = time.perf_counter() - t0
+    d_db = max(abs(curve[k] - curve_c[k]) for k in EVAL_COUNTS)
+    d_de = max(abs(fid4[k] - fid4_c[k]) for k in fid4
+               if not k.startswith("radius"))
+    d_r = max(abs(fid4[k] - fid4_c[k]) for k in fid4
+              if k.startswith("radius"))
+    print(f"eval on {dev.type} vs its CPU twin ({cpu_s:.1f} s), the same "
+          f"hint locations: curve max {d_db:.2e} dB per count (bound "
+          f"{EVAL_DB_BOUND}); fidelity on 4 images, counts 1 and 5: ΔE "
+          f"{d_de:.3f} (bound {FID_DE_BOUND}), radii {d_r:.1f} px (bound "
+          f"{FID_RADIUS_BOUND})")
+    if d_db > EVAL_DB_BOUND or d_de > FID_DE_BOUND or d_r > FID_RADIUS_BOUND:
+        die("eval: card and CPU disagree past the bounds")
+
+    # each exported file serves: prep_net, then a table click
+    for label, path in exports.items():
+        m = ColorizeImageTorch(Xd=S, device=dev)
+        m.prep_net(path=path)
+        m.load_image_array(image(1500, 300, 400))
+        frame = m.net_forward_table(*hints.points_json_to_table(
+            session_hints(5), S))
+        if not isinstance(frame, np.ndarray) or frame.shape != (S, S, 3):
+            die(f"the {label} export does not serve")
+        print(f"the {label} export loads in prep_net (conv1 "
+              f"{tuple(m.net.model1[0].weight.shape)}) and a table click "
+              f"runs on it")
+    tmp.cleanup()
     return phase_launches
 
 
@@ -2562,8 +2948,10 @@ def main() -> int:
     # 12. the HTTP server on the card (fifth launch count)
     server_launches = server_phase(entries, wpath["global"])
     tmp.cleanup()
+    # 13. training, distillation and evaluation on the card (sixth count)
+    train_launches = train_phase(entries, dev)
 
-    # 13. the kernels line
+    # 14. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -2573,15 +2961,17 @@ def main() -> int:
             "launches": (launches[k.name] + dist_launches[k.name]
                          + engine_launches[k.name]
                          + caffe_launches[k.name]
-                         + server_launches[k.name]),
+                         + server_launches[k.name]
+                         + train_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
             "launches_caffe_path": caffe_launches[k.name],
             "launches_server": server_launches[k.name],
+            "launches_train_eval": train_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 14.
+    # 15.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,8 @@ held against. It imports torch and numpy, never jax, and nothing of
              ColorizeImageTorchCaffeGlobDist (the Caffe family), all on the
              ColorizeImageBase contract
   apps/      the two notebook sessions as functions (demos), the HTTP
-             server (serve) and its browser page (webui)
+             server (serve) and its browser page (webui), the training
+             CLI (train) and the PSNR-vs-hints evaluation (eval)
   config     ColorizeConfig and make_backend over the five API classes
   data/      the ab bin tables; the host-facing gamut helpers (no Qt)
   engine/    the click, window, suggestion and full-res programs
@@ -20,6 +21,10 @@ held against. It imports torch and numpy, never jax, and nothing of
              conversion; the three Caffe graphs (caffe_net), the native
              .caffemodel reader and encoder (caffemodel_io), the global
              color statistics of a reference image (global_stats)
+  train/     the training forward's losses, the simulated-hint sampler,
+             the folder loader and the device-resident corpus, the train
+             and distillation steps with their optimizer, schedule and
+             train-state file (one device)
   ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
              holds the hand-written kernels (sources in csrc/),
              counterparts of ops/pallas
@@ -39,8 +44,9 @@ The histogram-transfer session::
 
 Not ported yet: the ``abq`` and ``*_host`` click variants with the
 packed-row click+suggest program (they wait for the native host ops), the
-sharded (``mesh=``) forms of the batch engine, training, and the apps other
-than the demos and the server (video, eval, the GUI's control).
+sharded (``mesh=``) forms of the batch engine and of the train steps, and
+the apps other than the demos, the server, train and eval (video,
+fidelity, the GUI and its control, ``__main__``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -21,7 +21,11 @@ relayout. Details carried over exactly:
   take TF32 (the JAX package's ``Precision.DEFAULT``), and
   :meth:`SIGGRAPHGenerator.cast_weights_` stores the weights in bf16, where
   each conv casts its input to the weight's type and its output back to
-  f32 (the JAX package's ``_cast_params`` and ``layers.conv2d``).
+  f32 (the JAX package's ``_cast_params`` and ``layers.conv2d``);
+* training: :func:`forward_train` (``apply_train``) runs the same net over
+  a flat dict of tensors (:func:`train_params`) and returns the singly
+  scaled regression output and the raw class logits at H/4; its BatchNorm
+  is written out elementwise, so the running statistics are trained too.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import conv_precision
@@ -289,6 +294,99 @@ def load_state_dict_file(path: str) -> dict[str, torch.Tensor]:
         raise ValueError(f"{path} is not a SIGGRAPH-family checkpoint (no "
                          "'model1.0.weight')")
     return state_dict_from_params(arrays)
+
+
+_BLOCK = {b[0]: b for b in _BLOCKS}
+_DILATION = {"model5": 2, "model6": 2}
+_RELU_LED = {"model8", "model9", "model10"}
+_BARE = {"model8up", "model9up", "model10up", "model3short8", "model2short9",
+         "model1short10", "model_class", "model_out"}
+
+
+def train_params(sd: Mapping[str, torch.Tensor], device=None
+                 ) -> dict[str, torch.Tensor]:
+    """The trained tensors of a state dict: every entry but
+    ``num_batches_tracked``, as f32 leaves that require grad. BatchNorm's
+    ``running_mean`` and ``running_var`` are among them: the JAX package
+    differentiates its whole params dict, so its optimizer trains them."""
+    return {k: v.detach().to(device=device, dtype=torch.float32,
+                             copy=True).contiguous().requires_grad_(True)
+            for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
+def _conv_train(params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """One conv of the flat dict. The weight's type is the compute type
+    (the input is cast to it, the output back to the input's type), as in
+    :class:`_Conv2d`, so a bf16 teacher runs through the same code."""
+    w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+    block = name.split(".")[0]
+    out_dtype, x = x.dtype, x.to(w.dtype)
+    if block in _DECONV_BLOCKS:
+        y = F.conv_transpose2d(x, w, b, stride=2, padding=1)
+    else:
+        d = _DILATION.get(block, 1)
+        y = F.conv2d(x, w, b, padding=d * (w.shape[-1] - 1) // 2, dilation=d)
+    return y.to(out_dtype)
+
+
+def _batchnorm_train(params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """Inference BatchNorm written out elementwise (the JAX package's
+    ``layers.batchnorm``): ``F.batch_norm`` is not differentiable in its
+    running statistics, which the JAX package trains."""
+    c = lambda s: params[f"{name}.{s}"][:, None, None]  # noqa: E731
+    return ((x - c("running_mean")) * torch.rsqrt(c("running_var") + 1e-5)
+            * c("weight") + c("bias"))
+
+
+def _block_train(params, name: str, x: torch.Tensor) -> torch.Tensor:
+    """One Sequential block on the flat dict, activations where the
+    reference's Sequentials have them (the JAX package's ``_block``)."""
+    _, conv_idx, bn_idx = _BLOCK[name]
+    if name in _RELU_LED:
+        x = F.relu(x)
+    for i, j in enumerate(conv_idx):
+        x = _conv_train(params, f"{name}.{j}", x)
+        if name == "model10" and i == len(conv_idx) - 1:
+            x = F.leaky_relu(x, 0.2)
+        elif name not in _BARE:
+            x = F.relu(x)
+    if bn_idx is not None:
+        x = _batchnorm_train(params, f"{name}.{bn_idx}", x)
+    return x
+
+
+def forward_train(params: Mapping[str, torch.Tensor], input_A: torch.Tensor,
+                  input_B: torch.Tensor, mask_B: torch.Tensor,
+                  maskcent: float = 0.0, precision_name: str = "default"):
+    """The training forward, the JAX package's ``siggraph.apply_train``:
+    (N,1,H,W) L - 50, (N,2,H,W) hint ab, (N,1,H,W) mask -> (out_reg
+    (N,2,H,W), ``tanh * 110`` once; logits (N,529,H/4,W/4), raw
+    ``model_class`` output on conv8_3: no softmax, no upsample, no second
+    x110).
+
+    ``params`` is a flat dict of torch-layout tensors (:func:`train_params`),
+    differentiable in every entry. BatchNorm uses the running statistics.
+    ``precision_name`` scopes the convs of this forward
+    (``device.conv_precision``); a caller that differentiates must hold the
+    same scope over ``backward()``, whose convs run after this returns."""
+    blk = lambda n, x: _block_train(params, n, x)  # noqa: E731
+    with conv_precision(precision_name):
+        x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
+                      dim=1).contiguous()
+        conv1_2 = blk("model1", x)
+        conv2_2 = blk("model2", conv1_2[:, :, ::2, ::2])
+        conv3_3 = blk("model3", conv2_2[:, :, ::2, ::2])
+        conv4_3 = blk("model4", conv3_3[:, :, ::2, ::2])
+        conv7_3 = blk("model7", blk("model6", blk("model5", conv4_3)))
+        conv8_3 = blk("model8", blk("model8up", conv7_3)
+                      + blk("model3short8", conv3_3))
+        logits = blk("model_class", conv8_3)
+        conv9_3 = blk("model9", blk("model9up", conv8_3)
+                      + blk("model2short9", conv2_2))
+        conv10_2 = blk("model10", blk("model10up", conv9_3)
+                       + blk("model1short10", conv1_2))
+        out_reg = torch.tanh(blk("model_out", conv10_2)) * 110.0
+    return out_reg, logits
 
 
 def init_state_dict(width: float = 1.0, seed: int = 0

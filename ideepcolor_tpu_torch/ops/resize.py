@@ -196,3 +196,58 @@ def resize_u8_half_pixel(im: torch.Tensor, out_hw: tuple[int, int]
     out = (((b0[:, None, None] * (rows[r0] >> 4)) >> 16)
            + ((b1[:, None, None] * (rows[r1] >> 4)) >> 16) + 2) >> 2
     return out.clamp(0, 255).to(torch.uint8)
+
+
+# PIL's ``Image.resize(size, Image.BILINEAR)`` on uint8 (Pillow's
+# ``Resample.c``): a triangle filter whose support widens by the reduction
+# factor (it antialiases when shrinking), coefficients normalized per output
+# pixel in float64 and then rounded to 22-bit fixed point, a horizontal pass
+# and then a vertical one, each rounding to uint8; a side that keeps its size
+# is not resampled. The training and eval loaders of the JAX package resize
+# with PIL; the card's machine has no PIL.
+_PIL_BITS = 22
+
+
+def pil_bilinear_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float64 matrix of PIL's fixed-point BILINEAR
+    coefficients (integers, each row summing to about 2**22)."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale                      # the triangle's support is 1
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(n_out) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), n_in)
+    x = xmin[:, None] + np.arange(ksize)[None]
+    valid = x < xmax[:, None]
+    t = np.abs(((x - center[:, None]) + 0.5) * (1.0 / filterscale))
+    w = np.where(valid & (t < 1.0), 1.0 - t, 0.0)
+    ww = w.sum(1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    fixed = np.trunc(w * (1 << _PIL_BITS) + np.where(w < 0, -0.5, 0.5))
+    m = np.zeros((n_out, n_in))
+    rows = np.broadcast_to(np.arange(n_out)[:, None], x.shape)
+    m[rows[valid], x[valid]] = fixed[valid]
+    return m
+
+
+def _pil_pass(im: np.ndarray, m: np.ndarray, axis: int) -> np.ndarray:
+    # integer-valued float64: every product and partial sum stays below
+    # 2**53, so the product is exact in any order
+    acc = np.moveaxis(np.tensordot(im.astype(np.float64), m, ([axis], [1])),
+                      -1, axis)
+    return np.clip(np.floor((acc + (1 << (_PIL_BITS - 1)))
+                            / (1 << _PIL_BITS)), 0, 255).astype(np.uint8)
+
+
+def resize_u8_pil_bilinear(im: np.ndarray, out_hw: tuple[int, int]
+                           ) -> np.ndarray:
+    """(H, W, C) uint8 -> (h, w, C) uint8, as PIL's
+    ``Image.fromarray(im).resize((w, h), Image.BILINEAR)``."""
+    im = np.asarray(im, np.uint8)
+    h, w = out_hw
+    if im.shape[1] != w:
+        im = _pil_pass(im, pil_bilinear_matrix_np(im.shape[1], w), 1)
+    if im.shape[0] != h:
+        im = _pil_pass(im, pil_bilinear_matrix_np(im.shape[0], h), 0)
+    return np.array(im, copy=True)

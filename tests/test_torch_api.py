@@ -327,7 +327,9 @@ def test_port_imports_nothing_of_jax():
         "'engine.streaming', 'engine.batch', 'config', 'apps.serve', "
         "'apps.webui', 'utils', 'utils.imageio', 'utils.ndarray', "
         "'utils.profiling', 'utils.session', 'utils.soakload', "
-        "'utils.visualize'}\n"
+        "'utils.visualize', 'train', 'train.losses', 'train.hints_sim', "
+        "'train.data', 'train.device_data', 'train.step', 'train.distill', "
+        "'apps.train', 'apps.eval'}\n"
         "assert {'ideepcolor_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")
