@@ -174,11 +174,35 @@ or more each; any failure exits non-zero:
    twin of the eval with the same hint locations (the curve within
    EVAL_DB_BOUND per count, the fidelity within FID_*), and each export
    loaded by ``prep_net`` for a table click;
-14. one JSON line listing each kernel entry with its launches on the six
+14. the front-ends, the seventh path, with launch counts of their own:
+   the Qt GUI's drawing pad (``ui/qt_gui.GUIDraw``, under PyQt5 offscreen
+   where it imports, else under ``tests/_fake_qt.py``) on the teacher and
+   its dist model at load size 256 and a 512-px window, f32: a seeded
+   1000x750 PNG through ``init_result`` (the port's codec, cubic resizes
+   and ``load_image``), ten click+suggest clicks with colors, a drag of 20
+   motion events through the async session, a palette pick, an erase, a
+   wheel step, 40 timed re-clicks and ``save_result``; then a bf16 GUI,
+   timed. The video app (``apps/video.run``) on 64 seeded 640x480 PNG
+   frames at --size 256, with static hints and with tracked hints moved by
+   a known translation field in place of the optical flow. K1's
+   device-count entry and K2's compose must launch on both, K2's fused
+   entry on the GUI. Then, after the counts are read: every scripted GUI
+   frame against the API's window clicks on the same table, window L plane
+   and matrices, the drag against a synchronous click on its final table,
+   the saved PNGs against their frames, three clicks of a CPU twin, all
+   within the frame bound; the video frames against StreamingSession on
+   the same gray frames and hints; without OpenCV, ``--track-hints`` with
+   its default flow exits 2 before any work. Printed: the GUI click (press
+   to update_result) p50 / p95 on the host clock, f32 and bf16, against
+   the 16.7 ms display frame; drag frames painted per second; the video
+   app's steady fps beside phase 9's engine-only rate, and its host decode
+   and resize ms per frame. Last, ``python -m ideepcolor_tpu_torch --help``
+   and ``fidelity --list`` in subprocesses;
+15. one JSON line listing each kernel entry with its launches on the seven
    paths, its error against the plain version, its time, the plain
    version's, its bound and what sets it, and the shape and plane layout
    those numbers were measured at;
-15. last line: {"ok": true, "device": {...}}.
+16. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -265,6 +289,16 @@ EVAL_COUNTS = (0, 1, 2, 5, 10, 25)
 EVAL_DB_BOUND = 0.01
 FID_DE_BOUND = 0.01
 FID_RADIUS_BOUND = 0.2
+# phase 14, the front-ends: the GUI's scripted clicks (each checked), the
+# timed re-clicks after them, the clicks of its CPU twin, the drag; the video
+# app's clip; a 60 Hz display frame
+GUI_CLICKS = 10
+GUI_TIMED_CLICKS = 40
+GUI_CPU_CLICKS = 3
+DRAG_EVENTS = 20
+VIDEO_FRAMES = 64
+VIDEO_HW = (480, 640)
+DISPLAY_FRAME_MS = 1000 / 60
 
 
 def die(msg: str) -> None:
@@ -1271,6 +1305,437 @@ def train_phase(entries, dev) -> dict:
               f"{tuple(m.net.model1[0].weight.shape)}) and a table click "
               f"runs on it")
     tmp.cleanup()
+    return phase_launches
+
+
+def frontend_phase(entries, dev, engine_fps: dict) -> dict:
+    """Phase 14: the front-ends on ``dev`` (the card; "cpu" rehearses the
+    phase's control flow): the Qt GUI's drawing pad (``ui/qt_gui.GUIDraw``)
+    on a dist session, the video app (``apps/video.run``) with static and
+    tracked hints, and the front door in subprocesses. ``engine_fps`` holds
+    phase 9's StreamingSession rates without the map ("dense", "table").
+    Returns the phase's launches per kernel entry (the seventh count), read
+    before the references are made."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    import torch
+    from ideepcolor_tpu_torch.api import (ColorizeImageTorch,
+                                          ColorizeImageTorchDist)
+    from ideepcolor_tpu_torch.apps import video
+    from ideepcolor_tpu_torch.data import lab_gamut
+    from ideepcolor_tpu_torch.engine.streaming import StreamingSession
+    from ideepcolor_tpu_torch.models import siggraph
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+    from ideepcolor_tpu_torch.ops.hints import put_points_json
+    from ideepcolor_tpu_torch.ops.resize import resize_u8_half_pixel
+    from ideepcolor_tpu_torch.utils.imageio import encode_png, read_image
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # a. the GUI needs Qt: PyQt5 offscreen where it imports, else the
+    # repository's stand-in (the module imports exactly its names)
+    try:
+        import PyQt5.QtWidgets  # noqa: F401
+        os.environ.setdefault("QT_QPA_PLATFORM", "offscreen")
+        from PyQt5.QtWidgets import QApplication
+        app = QApplication.instance() or QApplication([])
+        qt = "PyQt5, offscreen"
+    except ImportError:
+        sys.path.insert(0, "tests")
+        import _fake_qt
+        _fake_qt.install()
+        app = None
+        qt = "tests/_fake_qt.py (PyQt5 is not installed)"
+    from PyQt5.QtCore import QPoint, Qt
+    from ideepcolor_tpu_torch.ui import qt_gui
+
+    class Event:
+        """What the drawing pad's handlers read of a mouse or wheel
+        event."""
+
+        def __init__(self, x, y, button=Qt.LeftButton, delta=0):
+            self._pos, self._button = QPoint(x, y), button
+            self._delta = QPoint(0, delta)
+
+        def pos(self):
+            return self._pos
+
+        def button(self):
+            return self._button
+
+        def angleDelta(self):
+            return self._delta
+
+    def pump():                 # the real Qt runs QTimer callbacks here
+        if app is not None:
+            app.processEvents()
+
+    def gui(device, dtype=None):
+        m = ColorizeImageTorch(Xd=S, device=device)
+        m.prep_net(path=WEIGHTS, dtype=dtype)
+        d = ColorizeImageTorchDist(Xd=S, device=device)
+        d.prep_net(path=WEIGHTS, dtype=dtype)
+        draw = qt_gui.GUIDraw(m, dist_model=d, load_size=S, win_size=WIN)
+        shown, palettes = [], []
+        draw.update_result.connect(
+            lambda r: shown.append(time.perf_counter()))
+        draw.suggest_colors.connect(lambda c: palettes.append(np.array(c)))
+        return draw, shown, palettes
+
+    def press(draw, shown, x, y, button=Qt.LeftButton):
+        """A mouse press; its time from the press to the frame handed to
+        update_result (host clock, the frame read back)."""
+        n = len(shown)
+        t0 = time.perf_counter()
+        draw.mousePressEvent(Event(x, y, button))
+        pump()
+        if len(shown) != n + 1:
+            die(f"GUI press at {x},{y}: {len(shown) - n} frames shown")
+        return (shown[-1] - t0) * 1e3
+
+    def host_clock(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return np.array(out)
+
+    os.makedirs(os.path.join("build", "frontend"), exist_ok=True)
+    img_path = os.path.join("build", "frontend", "seeded_1000x750.png")
+    with open(img_path, "wb") as f:
+        f.write(encode_png(image(1700, *FULLRES_HW)))
+
+    for k in entries:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    draw, shown, palettes = gui(dev)
+    t0 = time.perf_counter()
+    draw.init_result(img_path)
+    sync()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    if draw.result.shape != (draw.win_h, draw.win_w, 3):
+        die(f"GUI window frame {draw.result.shape}")
+    rng = np.random.default_rng(14)
+    xs = np.linspace(draw.dw + 24, WIN - draw.dw - 24, GUI_CLICKS // 2)
+    pts = [(int(x), int(y)) for y in (WIN // 3, 2 * WIN // 3) for x in xs]
+    colors = [tuple(int(v) for v in rng.integers(0, 256, 3))
+              for _ in pts]
+    # the scripted session: each click's table, pixel and window frame, held
+    # against the API after the counts are read
+    record = []
+    click_ms = []
+    for (x, y), color in zip(pts, colors):
+        if not draw._can_fuse_suggest():
+            die("GUI click: the click+suggest program is not available")
+        draw.user_color = color
+        click_ms.append(press(draw, shown, x, y))
+        pal = palettes[-1]
+        if pal.shape != (SUGGEST_K + 1, 3) or not np.all(pal[-1] == 0.5) \
+                or not np.all((pal >= 0) & (pal <= 1)):
+            die(f"GUI suggestion palette {pal.shape}")
+        record.append(("suggest", draw.uiControl.hint_table(),
+                       draw.scale_point(QPoint(x, y)), draw.result.copy()))
+    if len(draw.uiControl.userEdits) != GUI_CLICKS:
+        die(f"GUI: {len(draw.uiControl.userEdits)} edits of {GUI_CLICKS}")
+    # a synchronous window click (it captures the window program the drag
+    # submits), then a drag of DRAG_EVENTS motion events through the async
+    # session
+    draw.compute_result()
+    record.append(("win", draw.uiControl.hint_table(), None,
+                   draw.result.copy()))
+    x0, y0 = pts[-1]
+    sess_frames = draw._async.frames_materialized if draw._async else 0
+    t0 = time.perf_counter()
+    for j in range(1, DRAG_EVENTS + 1):
+        draw.mouseMoveEvent(Event(x0 + j, y0))
+        pump()
+    sync()
+    drag_s = time.perf_counter() - t0
+    sess = draw._async
+    painted = sess.frames_materialized - sess_frames
+    if sess.frames_submitted != DRAG_EVENTS or sess.pending or not painted:
+        die(f"GUI drag: {sess.frames_submitted} submitted, {painted} "
+            f"painted, {sess.pending} pending")
+    drag_frame = draw.result.copy()
+    draw.compute_result()               # a synchronous click, same table
+    frame_check("GUI drag against the synchronous click on its final "
+                "table", drag_frame, draw.result, FRAME_BOUND_LSB,
+                FRAME_BOUND_SHARE)
+    record.append(("win", draw.uiControl.hint_table(), None,
+                   draw.result.copy()))
+    # a palette pick (the suggestion palette's fourth swatch), an erase, a
+    # wheel step
+    draw.pos = QPoint(x0 + DRAG_EVENTS, y0)
+    draw.set_color((np.clip(palettes[-1][3], 0, 1) * 255).astype(np.uint8))
+    record.append(("win", draw.uiControl.hint_table(), None,
+                   draw.result.copy()))
+    press(draw, shown, *pts[0], button=Qt.RightButton)
+    if len(draw.uiControl.userEdits) != GUI_CLICKS - 1:
+        die("GUI erase did not remove the point")
+    record.append(("win", draw.uiControl.hint_table(), None,
+                   draw.result.copy()))
+    width = draw.brushWidth
+    draw.wheelEvent(Event(0, 0, delta=-120))
+    if draw.brushWidth == width:
+        die("GUI wheel step did not change the brush")
+    # timed: clicks that reselect the points with new colors (each a
+    # click+suggest click)
+    for i in range(GUI_TIMED_CLICKS):
+        draw.user_color = colors[i % len(colors)][::-1]
+        click_ms.append(press(draw, shown, *pts[1 + i % (len(pts) - 1)]))
+    save_dir = draw.save_result()
+    sync()
+    gui_launches = {k.name: k.launches for k in entries}
+    gui_s = time.perf_counter() - t_phase
+    for name, want in (("ours.png", draw.result),
+                       ("ours_fullres.png", draw.model.get_img_fullres()),
+                       ("input_mask.png", np.repeat(
+                           draw.im_mask0[0, ..., None].astype(np.uint8)
+                           * 255, 3, axis=2))):
+        if not np.array_equal(read_image(os.path.join(save_dir, name)),
+                              want):
+            die(f"GUI session save: {name} does not decode to its frame")
+    for name, shape in (("im_l.npy", (1, S, S)), ("im_ab.npy", (2, S, S)),
+                        ("im_mask.npy", (1, S, S))):
+        if np.load(os.path.join(save_dir, name)).shape != shape:
+            die(f"GUI session save: {name}")
+    shutil.rmtree(save_dir)
+
+    # bf16, timed only
+    bdraw, bshown, _ = gui(dev, "bfloat16")
+    bdraw.init_result(img_path)
+    bf_ms = []
+    for i in range(GUI_CLICKS + GUI_TIMED_CLICKS // 2):
+        bdraw.user_color = colors[i % len(colors)]
+        bf_ms.append(press(bdraw, bshown, *pts[i % len(pts)]))
+    del bdraw
+    sync()
+
+    # b. the video app: a seeded clip of VIDEO_FRAMES PNG frames, a window
+    # sliding one pixel a frame over a larger image
+    for k in entries:
+        k.launches = 0
+    H, W = VIDEO_HW
+    tmp = tempfile.TemporaryDirectory()
+    frames_dir = os.path.join(tmp.name, "frames")
+    os.makedirs(frames_dir)
+    big = image(1800, H, W + VIDEO_FRAMES)
+    for i in range(VIDEO_FRAMES):
+        with open(os.path.join(frames_dir, f"f{i:04d}.png"), "wb") as f:
+            f.write(encode_png(big[:, i:i + W]))
+    hints = session_hints(10, seed=33)
+    hints_path = os.path.join(tmp.name, "hints.json")
+    with open(hints_path, "w") as f:
+        json.dump(hints, f)
+    shift = -S / W                # content moves 1 source px left a frame
+
+    def translation(prev, cur):
+        """The known flow of the clip, in net pixels per frame."""
+        flow = np.zeros(cur.shape + (2,), np.float32)
+        flow[..., 0] = shift
+        return flow
+
+    def run(tag, flow=None, extra=()):
+        out = os.path.join(tmp.name, tag)
+        args = video.parse_args([frames_dir, "--out", out, "--weights",
+                                 WEIGHTS, "--hints", hints_path, "--size",
+                                 str(S), "--device", dev.type, *extra])
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = video.run(args, flow=flow or video.farneback_flow)
+        return rc, out, buf.getvalue(), err.getvalue(), \
+            time.perf_counter() - t0
+
+    runs = {}
+    for tag, flow, extra in (("static", None, ()),
+                             ("tracked", translation, ("--track-hints",))):
+        rc, out, stdout, _, secs = run(tag, flow, extra)
+        m = re.search(r"colorized (\d+) frames .* steady ([0-9.]+) fps",
+                      stdout)
+        if rc != 0 or m is None or int(m.group(1)) != VIDEO_FRAMES:
+            die(f"video app ({tag}): rc {rc}, {stdout.strip()!r}")
+        runs[tag] = (out, float(m.group(2)), secs)
+    sync()
+    video_launches = {k.name: k.launches for k in entries}
+    # without OpenCV (made unimportable where it is installed),
+    # --track-hints with its default flow exits 2 before any work
+    had_cv2 = video._opencv() is not None
+    saved_cv2 = sys.modules.get("cv2")
+    sys.modules["cv2"] = None
+    try:
+        rc, out, _, err, _ = run("untracked", None, ("--track-hints",))
+    finally:
+        if saved_cv2 is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved_cv2
+    if rc != 2 or "cv2" not in err or os.path.exists(out):
+        die(f"video app --track-hints without OpenCV: rc {rc}, "
+            f"{err.strip()!r}")
+    cv2_note = (f"OpenCV {'is' if had_cv2 else 'is not'} installed here; "
+                f"with it unimportable, --track-hints and its default flow "
+                f"exit 2 before any work: {err.strip()!r}")
+    t0 = time.perf_counter()
+    grays = list(video._frame_source(frames_dir))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(grays)
+    t0 = time.perf_counter()
+    net_grays = [resize_u8_half_pixel(torch.from_numpy(g)[..., None],
+                                      (S, S))[..., 0].numpy() for g in grays]
+    resize_ms = (time.perf_counter() - t0) * 1e3 / len(grays)
+    phase_launches = {k: gui_launches[k] + video_launches[k]
+                      for k in gui_launches}
+    print(f"front-ends on {dev.type} ({qt}): GUI {gui_s:.1f} s, launches "
+          f"{gui_launches}; video app launches {video_launches}")
+    if on_card:
+        for label, counts, need in (
+                ("GUI", gui_launches, (k1.KERNEL_BATCH, k2.KERNEL,
+                                       k2.KERNEL_AB)),
+                ("video app", video_launches, (k1.KERNEL_BATCH, k2.KERNEL))):
+            idle = [k.name for k in need if counts[k.name] == 0]
+            if idle:
+                die(f"kernels {idle} were not launched by the {label}")
+
+    # the GUI's frames against the API on the same tables, window L plane
+    # and matrices
+    rm = ColorizeImageTorch(Xd=S, device=dev)
+    rm.prep_net(path=WEIGHTS)
+    rd = ColorizeImageTorchDist(Xd=S, device=dev)
+    rd.prep_net(path=WEIGHTS)
+    rm.load_image(img_path)
+    rd.set_image(draw.im_rgb)
+    empty = (np.zeros((256, 4), np.int32), np.zeros((256, 2), np.float32), 0)
+    rd.predict_dist_table(*empty)
+    rm.net_forward_table(*empty)
+    worst = 0.0
+    for kind, table, pixel, frame in record:
+        if kind == "suggest":
+            want, _ = rm.net_forward_table_win_suggest(
+                *table, *draw._window(), rd, pixel[1], pixel[0],
+                K=SUGGEST_K)
+        else:
+            want = rm.net_forward_table_win(*table, *draw._window())
+        worst = max(worst, frame_check(f"GUI {kind} click against the API",
+                                       frame, want, FRAME_BOUND_LSB,
+                                       FRAME_BOUND_SHARE))
+    # the GUI click's parts, timed alone on the host clock: the API's
+    # click+suggest click on the last scripted table, one gamut snap (a
+    # click makes two, as the reference's)
+    _, table, pixel, _ = record[GUI_CLICKS - 1]
+    api_ms = host_clock(lambda: rm.net_forward_table_win_suggest(
+        *table, *draw._window(), rd, pixel[1], pixel[0], K=SUGGEST_K), 30)
+    snap_ms = host_clock(lambda: draw.calibrate_color(
+        colors[0], QPoint(*pts[1])), 30)
+    snap_l = float(draw.im_lab[S // 2, S // 2, 0])
+    snap_dev_ms = host_clock(lambda: lab_gamut.snap_ab(
+        snap_l, np.array(colors[0], np.uint8), device=dev), 30)
+    # a CPU twin of the first GUI_CPU_CLICKS clicks
+    t0 = time.perf_counter()
+    cdraw, cshown, _ = gui(torch.device("cpu"))
+    cdraw.init_result(img_path)
+    for i, ((x, y), color) in enumerate(zip(pts[:GUI_CPU_CLICKS], colors)):
+        cdraw.user_color = color
+        press(cdraw, cshown, x, y)
+        frame_check(f"GUI click {i} on the card against its CPU twin",
+                    record[i][3], cdraw.result, FRAME_BOUND_LSB,
+                    FRAME_BOUND_SHARE)
+    cpu_s = time.perf_counter() - t0
+    # the first clicks capture the click programs: the stats take the
+    # timed re-clicks (f32) and the bf16 clicks after the first two
+    ms, bms = np.array(click_ms[GUI_CLICKS:]), np.array(bf_ms[2:])
+    print(f"GUI drawing pad on {dev.type} (teacher, load size {S}, window "
+          f"{draw.win_w}x{draw.win_h} of {WIN}, a {FULLRES_HW[0]}x"
+          f"{FULLRES_HW[1]} (HxW) PNG through init_result: {load_ms:.1f} "
+          f"ms): {GUI_CLICKS} click+suggest "
+          f"clicks with colors, a drag of {DRAG_EVENTS} motion events, a "
+          f"palette pick, an erase, a wheel step, {GUI_TIMED_CLICKS} more "
+          f"clicks and save_result; every scripted frame against the API's "
+          f"window clicks on the same table, L plane and matrices: 1 LSB on"
+          f" at most {worst:.2e} of the pixels; the drag equal to the "
+          f"synchronous click within the bound; {GUI_CPU_CLICKS} clicks on "
+          f"a CPU twin ({cpu_s:.1f} s) within the bound; the saved PNGs "
+          f"decode to their frames")
+    print(f"GUI click, press to update_result (host clock, window frame and"
+          f" palette read back), f32: p50 {np.percentile(ms, 50):.3f} ms, "
+          f"p95 {np.percentile(ms, 95):.3f} ms over {len(ms)} clicks; bf16:"
+          f" p50 {np.percentile(bms, 50):.3f} ms, p95 "
+          f"{np.percentile(bms, 95):.3f} ms over {len(bms)}; against the "
+          f"{DISPLAY_FRAME_MS:.1f} ms display frame. Alone: the API's "
+          f"click+suggest click p50 {np.percentile(api_ms, 50):.3f} ms, p95 "
+          f"{np.percentile(api_ms, 95):.3f} ms; one gamut snap "
+          f"(calibrate_color, on the host) p50 "
+          f"{np.percentile(snap_ms, 50):.3f} ms, the same snap on "
+          f"{dev.type} p50 {np.percentile(snap_dev_ms, 50):.3f} ms. Drag:"
+          f" {painted} frames painted for {DRAG_EVENTS} motion events, "
+          f"{painted / drag_s:.1f} frames/s")
+
+    # the video app's frames against StreamingSession on the same gray
+    # frames and hints
+    sd = siggraph.load_state_dict_file(WEIGHTS)
+    for tag in ("static", "tracked"):
+        ref = StreamingSession(sd, size=S, depth=4, with_dist=False,
+                               device=dev)
+        tracker = None
+        if tag == "static":
+            ab = np.zeros((2, S, S), np.float32)
+            mask = np.zeros((1, S, S), np.float32)
+            put_points_json(ab, mask, hints, S)
+            ref.set_hints(ab.transpose(1, 2, 0), mask.transpose(1, 2, 0))
+        else:
+            tracker = video.HintTracker(hints, S, translation)
+        want = []
+        for g in net_grays:
+            if tracker is not None:
+                ref.set_hint_table(*tracker.step(g))
+            r = ref.submit(g, srgb=True)
+            if r is not None:
+                want.append(r[0])
+        want.extend(r[0] for r in ref.drain())
+        out = runs[tag][0]
+        names = sorted(os.listdir(out))
+        if len(names) != VIDEO_FRAMES:
+            die(f"video app ({tag}) wrote {len(names)} frames")
+        share = max(frame_check(f"video app ({tag}) frame {i}",
+                                read_image(os.path.join(out, n)), want[i],
+                                FRAME_BOUND_LSB, FRAME_BOUND_SHARE)
+                    for i, n in enumerate(names))
+        if tracker is not None:
+            moved = tracker.hints[0]["x"] - hints[0]["x"]
+            if moved >= 0 and hints[0]["x"] > 0:
+                die(f"tracked hints did not move with the field: {moved}")
+        print(f"video app, {tag} hints ({VIDEO_FRAMES} PNG frames of "
+              f"{W}x{H} at --size {S}, teacher): steady "
+              f"{runs[tag][1]:.1f} fps (the run: {runs[tag][2]:.2f} s); "
+              f"phase 9's engine alone, "
+              f"{'table' if tracker else 'dense'} hints: "
+              f"{engine_fps['table' if tracker else 'dense']:.1f} frames/s;"
+              f" frames against StreamingSession on the same gray frames "
+              f"and hints: 1 LSB on at most {share:.2e} of the pixels")
+    print(f"video app host work per frame: PNG decode + RGB2GRAY "
+          f"{decode_ms:.3f} ms, resize to {S} {resize_ms:.3f} ms; {cv2_note}")
+    tmp.cleanup()
+
+    # c. the front door, in subprocesses
+    for argv, want in ((["--help"], "fidelity"),
+                       (["fidelity", "--list"], "caffemodel-main-256")):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "ideepcolor_tpu_torch",
+                            *argv], capture_output=True, text=True,
+                           timeout=120)
+        if r.returncode != 0 or want not in r.stdout:
+            die(f"python -m ideepcolor_tpu_torch {' '.join(argv)}: rc "
+                f"{r.returncode}, {r.stderr.strip()[-300:]!r}")
+        print(f"python -m ideepcolor_tpu_torch {' '.join(argv)}: rc 0 in "
+              f"{time.perf_counter() - t0:.2f} s")
+    print(f"front-ends phase: {time.perf_counter() - t_phase:.1f} s")
     return phase_launches
 
 
@@ -2950,8 +3415,12 @@ def main() -> int:
     tmp.cleanup()
     # 13. training, distillation and evaluation on the card (sixth count)
     train_launches = train_phase(entries, dev)
+    # 14. the front-ends: the GUI, the video app, the front door (seventh)
+    frontend_launches = frontend_phase(
+        entries, dev, {"dense": fps["dense", False],
+                       "table": fps["table", False]})
 
-    # 14. the kernels line
+    # 15. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -2962,16 +3431,18 @@ def main() -> int:
                          + engine_launches[k.name]
                          + caffe_launches[k.name]
                          + server_launches[k.name]
-                         + train_launches[k.name]),
+                         + train_launches[k.name]
+                         + frontend_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
             "launches_caffe_path": caffe_launches[k.name],
             "launches_server": server_launches[k.name],
             "launches_train_eval": train_launches[k.name],
+            "launches_frontends": frontend_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 15.
+    # 16.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,7 +10,10 @@ held against. It imports torch and numpy, never jax, and nothing of
              ColorizeImageBase contract
   apps/      the two notebook sessions as functions (demos), the HTTP
              server (serve) and its browser page (webui), the training
-             CLI (train) and the PSNR-vs-hints evaluation (eval)
+             CLI (train), the PSNR-vs-hints evaluation (eval), the Qt
+             GUI's launcher (ideepcolor), the video app (video) and the
+             fidelity runner (fidelity); ``python -m ideepcolor_tpu_torch
+             COMMAND`` is the one front door (__main__)
   config     ColorizeConfig and make_backend over the five API classes
   data/      the ab bin tables; the host-facing gamut helpers (no Qt)
   engine/    the click, window, suggestion and full-res programs
@@ -25,12 +28,14 @@ held against. It imports torch and numpy, never jax, and nothing of
              the folder loader and the device-resident corpus, the train
              and distillation steps with their optimizer, schedule and
              train-state file (one device)
+  ui/        the hint edit list (control) and the Qt GUI (qt_gui: drawing
+             pad, gamut, palettes, result pane, main window)
   ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
              holds the hand-written kernels (sources in csrc/),
              counterparts of ops/pallas
   utils/     array and image-grid helpers, stage timers and device traces,
              session dumps and weight files, the soak-load generator, the
-             port's own PNG codec (imageio)
+             port's own PNG codec, file reader and RGB->gray (imageio)
 
 The histogram-transfer session::
 
@@ -43,10 +48,10 @@ The histogram-transfer session::
     frame = g.net_forward_fullres(zero_ab, zero_mask, glob)
 
 Not ported yet: the ``abq`` and ``*_host`` click variants with the
-packed-row click+suggest program (they wait for the native host ops), the
-sharded (``mesh=``) forms of the batch engine and of the train steps, and
-the apps other than the demos, the server, train and eval (video,
-fidelity, the GUI and its control, ``__main__``).
+packed-row click+suggest program (they wait for the native host ops), and
+the sharded (``mesh=``) forms of the batch engine and of the train steps.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

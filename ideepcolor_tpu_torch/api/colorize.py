@@ -43,6 +43,7 @@ from ..ops.cuda import colorspace_kernel as k2
 from ..ops.quantize import make_pts_grid
 from ..ops.resize import (linear_resize_matrix_np, nearest_resize_matrix_np,
                           resize_u8_half_pixel, zoom_with_matrices)
+from ..utils.imageio import read_image
 
 
 def _to_lab(rgb: torch.Tensor) -> torch.Tensor:
@@ -130,11 +131,9 @@ class ColorizeImageBase:
 
     # ----- image prep -----
     def load_image(self, input_path: str):
-        import cv2                   # file decoding only; not on the path
-        im = cv2.imread(input_path, 1)
-        if im is None:
-            raise FileNotFoundError(input_path)
-        self.load_image_array(cv2.cvtColor(im, cv2.COLOR_BGR2RGB))
+        """Decode the file with the port's codec (PNG natively, other
+        formats through OpenCV where it is installed) and load it."""
+        self.load_image_array(read_image(input_path))
 
     def load_image_array(self, im_rgb: np.ndarray):
         """``load_image`` from an in-memory (H,W,3) RGB array of any size:

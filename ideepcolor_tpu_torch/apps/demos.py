@@ -4,9 +4,10 @@ Counterpart of ``ideepcolor_tpu/apps/demos.py``: the local-hints notebook
 (zero-hint colorization, then user points) and the histogram-transfer
 notebook (histogram extraction + conditioned colorization) over the port's
 backends. Each returns the produced images. An image argument is a path
-(decoded with cv2) or an (H, W, 3) uint8 RGB array, so a caller without cv2
-passes arrays. Run as ``python -m ideepcolor_tpu_torch.apps.demos img
-[out_dir]`` to write PNGs.
+(decoded by ``utils.imageio.read_image``: PNG natively, other formats
+through OpenCV where it is installed) or an (H, W, 3) uint8 RGB array. Run
+as ``python -m ideepcolor_tpu_torch.apps.demos img [out_dir]`` to write
+PNGs.
 """
 
 from __future__ import annotations
@@ -19,17 +20,14 @@ from .. import api
 from ..models import global_stats
 from ..ops.hints import put_point
 from ..ops.resize import resize_u8_half_pixel
+from ..utils.imageio import encode_png, read_image
 
 
 def _rgb(img) -> np.ndarray:
     """A path -> its decoded RGB image; an array is returned as it is."""
     if not isinstance(img, (str, os.PathLike)):
         return np.asarray(img)
-    import cv2                        # file decoding only
-    im = cv2.imread(os.fspath(img), 1)
-    if im is None:
-        raise FileNotFoundError(img)
-    return cv2.cvtColor(im, cv2.COLOR_BGR2RGB)
+    return read_image(img)
 
 
 def demo_local_hints(img, weights: str = '', Xd: int = 256,
@@ -100,10 +98,10 @@ def main(argv=None):
         return 2
     out = argv[1] if len(argv) > 1 else './demo_out'
     os.makedirs(out, exist_ok=True)
-    import cv2
     res = demo_local_hints(argv[0])
     for k, v in res.items():
-        cv2.imwrite(os.path.join(out, f'local_{k}.png'), v[:, :, ::-1])
+        with open(os.path.join(out, f'local_{k}.png'), 'wb') as f:
+            f.write(encode_png(v))
     print(f'wrote {len(res)} local-hints results to {out}')
     return 0
 

@@ -16,7 +16,9 @@ the full-res getters use:
   (:func:`bilinear_up2_fixed`, a depthwise transposed conv);
 * the net-size image resize, :func:`resize_u8_half_pixel`: ``cv2.resize``
   with ``INTER_LINEAR`` (half-pixel centres, no antialias), written in
-  torch integer arithmetic so the port needs no cv2 or PIL.
+  torch integer arithmetic so the port needs no cv2 or PIL;
+* the GUI's image resizes, :func:`resize_u8_cubic`: ``cv2.resize`` with
+  ``INTER_CUBIC`` on uint8, in cv2's own fixed-point arithmetic.
 """
 
 from __future__ import annotations
@@ -196,6 +198,76 @@ def resize_u8_half_pixel(im: torch.Tensor, out_hw: tuple[int, int]
     out = (((b0[:, None, None] * (rows[r0] >> 4)) >> 16)
            + ((b1[:, None, None] * (rows[r1] >> 4)) >> 16) + 2) >> 2
     return out.clamp(0, 255).to(torch.uint8)
+
+
+# cv2's INTER_CUBIC on uint8 (OpenCV's resize, not the IPP one an IPP build
+# of cv2 takes by default: IPP computes in float and differs by 1 LSB on a
+# few percent of the pixels). The cubic coefficients at A = -0.75 are
+# computed in float32 and rounded to 11-bit shorts; the horizontal pass sums
+# four taps into int32 rows (borders replicated). The vertical pass is
+# vectorized: the first multiple of 8 values of every output row are
+# computed in float32 from the rows and the shorts times 2**-22, product by
+# product from the last tap to the first (no fused multiply-add), and
+# rounded half to even; the row's remaining values take the scalar integer
+# form, rounded by + 2**21 >> 22. Both saturate to uint8.
+_CUBIC_VEC = 8
+
+
+def _cv2_cubic_taps(n_in: int, n_out: int):
+    """cv2's four source indices (clamped) and 11-bit cubic weights per
+    output index, (n_out, 4) each."""
+    f = ((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5).astype(np.float32)
+    s = np.floor(f)
+    x = f - s
+    one = np.float32(1.0)
+    A = np.float32(-0.75)
+    c0 = ((A * (x + one) - np.float32(5) * A) * (x + one)
+          + np.float32(8) * A) * (x + one) - np.float32(4) * A
+    c1 = ((A + np.float32(2)) * x - (A + np.float32(3))) * x * x + one
+    c2 = ((A + np.float32(2)) * (one - x) - (A + np.float32(3))) \
+        * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    w = np.rint(np.stack([c0, c1, c2, c3], 1) * np.float32(_COEF_SCALE))
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3)[None], 0,
+                  n_in - 1)
+    return idx, w.astype(np.int32)
+
+
+def resize_u8_cubic(im: torch.Tensor, out_hw: tuple[int, int]
+                    ) -> torch.Tensor:
+    """(H, W, C) uint8 -> (h, w, C) uint8, as ``cv2.resize(im, (w, h),
+    interpolation=cv2.INTER_CUBIC)`` computes it without IPP, bit for bit
+    (see the comment above). Runs on the device of ``im``."""
+    if im.dtype != torch.uint8 or im.ndim != 3:
+        raise ValueError(f"expected (H,W,C) uint8, got {tuple(im.shape)} "
+                         f"{im.dtype}")
+    H, W, C = im.shape
+    h, w = out_hw
+    dev = im.device
+    xi, xw = (torch.as_tensor(a, device=dev) for a in _cv2_cubic_taps(W, w))
+    yi, yw = _cv2_cubic_taps(H, h)
+    x = im.to(torch.int32)
+    rows = sum(x[:, xi[:, k]] * xw[None, :, k, None] for k in range(4))
+    rows = rows.reshape(H, w * C)
+    n_vec = (w * C) // _CUBIC_VEC * _CUBIC_VEC
+    out = torch.empty((h, w * C), dtype=torch.uint8, device=dev)
+    ry = [torch.as_tensor(yi[:, k], device=dev) for k in range(4)]
+    if n_vec:
+        r = rows[:, :n_vec].to(torch.float32)
+        beta = torch.as_tensor(yw.astype(np.float32)
+                               * np.float32(1.0 / _COEF_SCALE ** 2),
+                               device=dev)
+        t = r[ry[3]] * beta[:, 3, None]
+        for k in (2, 1, 0):
+            t = r[ry[k]] * beta[:, k, None] + t
+        out[:, :n_vec] = torch.round(t).clamp(0, 255).to(torch.uint8)
+    if n_vec < w * C:
+        r = rows[:, n_vec:].to(torch.int64)
+        beta = torch.as_tensor(yw.astype(np.int64), device=dev)
+        acc = sum(r[ry[k]] * beta[:, k, None] for k in range(4))
+        out[:, n_vec:] = ((acc + (1 << (2 * _COEF_BITS - 1)))
+                          >> (2 * _COEF_BITS)).clamp(0, 255).to(torch.uint8)
+    return out.reshape(h, w, C)
 
 
 # PIL's ``Image.resize(size, Image.BILINEAR)`` on uint8 (Pillow's

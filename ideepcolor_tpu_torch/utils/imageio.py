@@ -13,9 +13,13 @@ server and tools do it here, so they run where OpenCV is not installed.
   goes to OpenCV when it imports. Without it, a body this module cannot
   decode raises :class:`UnsupportedImage` (a ValueError) naming the missing
   package, and the server answers 415 with its text.
+* :func:`read_image`: a file -> :func:`decode_image` of its bytes, what
+  ``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` gives.
 * :func:`encode_png`: (H, W, 3) uint8 RGB (or (H, W) gray) -> PNG bytes,
   filter None on the first row and Up on the others, so a reader
   reconstructs every row with one vectorized add.
+* :func:`rgb_to_gray_u8`: ``cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)`` on
+  uint8, bit for bit.
 
 Rows filtered None, Sub and Up are reconstructed with whole-row numpy
 operations (Sub is a cumulative sum mod 256 along the row). Average and
@@ -83,6 +87,33 @@ def decode_image(data: bytes) -> np.ndarray:
     if _cv2() is None:
         raise ValueError("undecodable image body (neither PNG nor JPEG)")
     return _cv2_decode(data, "this image format")
+
+
+def read_image(path) -> np.ndarray:
+    """An image file -> (H, W, 3) uint8 RGB through :func:`decode_image`.
+    FileNotFoundError when the file is missing; ValueError (or
+    :class:`UnsupportedImage`) as :func:`decode_image` raises them."""
+    with open(path, "rb") as f:
+        return decode_image(f.read())
+
+
+# cv2's RGB2GRAY on uint8: 15-bit fixed-point weights (summing to 1 << 15),
+# rounded (exhaustively equal to cv2 over all 2**24 colors)
+_GRAY_BITS = 15
+_GRAY_WEIGHTS = (9798, 19235, 3735)
+
+
+def rgb_to_gray_u8(rgb: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 RGB -> (H, W) uint8 gray: ``cv2.cvtColor(rgb,
+    cv2.COLOR_RGB2GRAY)`` (equally ``COLOR_BGR2GRAY`` of the BGR image)."""
+    x = np.asarray(rgb)
+    if x.dtype != np.uint8 or x.ndim != 3 or x.shape[2] != 3:
+        raise ValueError(f"expected (H,W,3) uint8 RGB, got {x.shape} "
+                         f"{x.dtype}")
+    wr, wg, wb = _GRAY_WEIGHTS
+    y = (x[..., 0].astype(np.int32) * wr + x[..., 1].astype(np.int32) * wg
+         + x[..., 2].astype(np.int32) * wb + (1 << (_GRAY_BITS - 1)))
+    return (y >> _GRAY_BITS).astype(np.uint8)
 
 
 def _chunks(data: bytes):

@@ -311,9 +311,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_port_imports_nothing_of_jax():
     """A fresh interpreter imports ideepcolor_tpu_torch and every module in
-    it; no jax* and no ideepcolor_tpu.* module may enter sys.modules."""
+    it (the Qt GUI under the fake Qt of tests/_fake_qt.py, which imports
+    nothing else); no jax* and no ideepcolor_tpu.* module may enter
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _fake_qt\n"
+        "_fake_qt.install()\n"
         "import ideepcolor_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'ideepcolor_tpu_torch.')]\n"
@@ -321,7 +326,7 @@ def test_port_imports_nothing_of_jax():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] == 'jax' or "
         "k.startswith(('jaxlib', 'ideepcolor_tpu.')) or "
         "k == 'ideepcolor_tpu')\n"
-        "assert len(names) >= 41, names\n"
+        "assert len(names) >= 48, names\n"
         "new = {'data.color_bins', 'data.lab_gamut', 'ops.quantize', "
         "'ops.kmeans', 'ops.gamut', 'engine.graphs', 'engine.interactive', "
         "'engine.streaming', 'engine.batch', 'config', 'apps.serve', "
@@ -329,7 +334,8 @@ def test_port_imports_nothing_of_jax():
         "'utils.profiling', 'utils.session', 'utils.soakload', "
         "'utils.visualize', 'train', 'train.losses', 'train.hints_sim', "
         "'train.data', 'train.device_data', 'train.step', 'train.distill', "
-        "'apps.train', 'apps.eval'}\n"
+        "'apps.train', 'apps.eval', 'ui', 'ui.control', 'ui.qt_gui', "
+        "'apps.ideepcolor', 'apps.video', 'apps.fidelity', '__main__'}\n"
         "assert {'ideepcolor_tpu_torch.' + n for n in new} <= set(names)\n"
         "assert not bad, bad\n"
         "print('ok', len(names))\n")

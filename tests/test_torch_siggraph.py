@@ -107,6 +107,30 @@ def test_loader_takes_both_layouts_and_pth(tmp_path):
         tsig.load_state_dict_file(str(tmp_path / "x.ckpt"))
 
 
+def test_legacy_pre04_pth_loads_like_jax(tmp_path):
+    """The pre-0.4 state-dict layout (no num_batches_tracked keys, the
+    legacy non-zipfile pickle) loads to the modern file's state dict, and
+    the JAX loader reads the same weights from it."""
+    from ideepcolor_tpu.api import colorize as jcolorize
+    sd = tsig.init_state_dict(width=0.125, seed=4)
+    modern, legacy = tmp_path / "modern.pth", tmp_path / "legacy.pth"
+    torch.save(sd, modern)
+    torch.save({k: v for k, v in sd.items()
+                if "num_batches_tracked" not in k}, legacy,
+               _use_new_zipfile_serialization=False)
+    a = tsig.load_state_dict_file(str(modern))
+    b = tsig.load_state_dict_file(str(legacy))
+    assert set(a) == set(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    params = jsig.params_from_state_dict(
+        jcolorize._load_checkpoint(str(legacy)))
+    back = tsig.state_dict_from_params(
+        {k: np.asarray(v) for k, v in params.items()})
+    for k in a:
+        assert torch.equal(back[k], a[k]), k
+
+
 def test_teacher_loads_strictly_at_full_width():
     """The bundled teacher (98 arrays, 34.2 M parameters) loads with
     strict=True into the full-width module, model_class included."""
