@@ -32,7 +32,10 @@ held against. It imports torch and numpy, never jax, and nothing of
              pad, gamut, palettes, result pane, main window)
   ops/       colorspace, hints, resize, quantize, kmeans, gamut; ops/cuda
              holds the hand-written kernels (sources in csrc/),
-             counterparts of ops/pallas
+             counterparts of ops/pallas; ops/host the native host runtime
+             (C++ in native/hostops.cpp, built with g++ at first use): the
+             hint mirrors, the host-composed window and abq frames, host
+             Lab
   utils/     array and image-grid helpers, stage timers and device traces,
              session dumps and weight files, the soak-load generator, the
              port's own PNG codec, file reader and RGB->gray (imageio)
@@ -47,9 +50,8 @@ The histogram-transfer session::
     glob = global_stats.extract(ref_rgb_256 / 255.0)["glob_ab_313"]
     frame = g.net_forward_fullres(zero_ab, zero_mask, glob)
 
-Not ported yet: the ``abq`` and ``*_host`` click variants with the
-packed-row click+suggest program (they wait for the native host ops), and
-the sharded (``mesh=``) forms of the batch engine and of the train steps.
+Not ported yet: the sharded (``mesh=``) forms of the batch engine and of
+the train steps.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -47,7 +47,9 @@ Where it differs from the JAX server:
   ``probe_program_load_s``.
 * ``health()["device"]`` is the card's name, or ``"cpu"``; ``"mesh"`` is
   always None: the sharded batch waits for the port of the mesh forms.
-* ``IDEEPCOLOR_NET_CLICK`` is not read: session clicks are ``rgb`` clicks.
+* ``IDEEPCOLOR_NET_CLICK=abq[_half]`` makes net-size session clicks
+  ``abq`` clicks (the uint8-quantized ab read back, the frame composed on
+  the host), as in the JAX server; full-res session clicks stay ``rgb``.
 * ``RecycleGuard.recycle`` releases the card by synchronizing, dropping the
   captured graphs and emptying PyTorch's cache before the exec.
 * The service takes ``device`` (the card unless ``"cpu"``) and no
@@ -82,7 +84,7 @@ from ..device import resolve_device
 from ..engine import graphs
 from ..engine.batch import colorize_batch, colorize_batch_table
 from ..models import global_stats
-from ..ops import colorspace as cs
+from ..ops import host
 from ..ops.hints import MAX_HINTS, points_json_to_table, put_points_json
 from ..ops.resize import resize_u8_half_pixel
 from ..utils.imageio import UnsupportedImage, decode_image, encode_png
@@ -469,11 +471,11 @@ class ColorizeService:
         return self._dist
 
     def _reccs_to_colors(self, d, centers, conf, h, w, k) -> dict:
-        """The pixel's L from ``rgb_to_lab`` of that one pixel on the host;
-        the K palette colors composed in one K2 launch on the device."""
-        px = torch.from_numpy(
-            d.img_rgb[h, w].astype(np.float32) / 255.0)[None, None]
-        L = float(cs.rgb_to_lab(px)[0, 0, 0])
+        """The pixel's L from the native host runtime's ``rgb2lab`` of that
+        one pixel; the K palette colors composed in one K2 launch on the
+        device."""
+        L = float(host.rgb2lab(
+            d.img_rgb[h, w][None, None].astype(np.float32) / 255.0)[0, 0, 0])
         lab = np.concatenate(
             [np.full((k, 1), L, np.float32),
              np.asarray(centers, np.float32)], axis=1).T[:, :, None]
@@ -587,8 +589,18 @@ class ColorizeService:
             if table is not None:
                 # the frame is read back (or, for full-res, copied from
                 # the model's own clone) before the lock is released: the
-                # next session's replay overwrites the graph's outputs
-                result = m.net_forward_table(*table)
+                # next session's replay overwrites the graph's outputs.
+                # IDEEPCOLOR_NET_CLICK=abq[_half] takes the abq click, but
+                # not for full-res clicks: the full-res fusion reads the
+                # device ab, which abq would upload again at every click.
+                # Backends without an abq program return -1: rgb then.
+                mode = api.colorize.net_click_mode()
+                result = -1
+                if mode != "rgb" and not fullres:
+                    result = m.net_forward_table_abq(
+                        *table, half=(mode == "abq_half"))
+                if isinstance(result, int):
+                    result = m.net_forward_table(*table)
             else:                       # >MAX_HINTS: dense fallback
                 result = m.net_forward(*self._hint_planes(hints))
             if isinstance(result, int):
@@ -788,6 +800,10 @@ class ColorizeService:
                 False,):
             sid = self.session_open(body, fast=fast)["id"]
             self.session_click(sid, click)
+            if api.colorize.net_click_mode() != "rgb":
+                # under abq the click above took the abq program; full-res
+                # session clicks take the rgb one: capture it too
+                self.session_click(sid, click, fullres=True)
             if suggest and not fast:
                 self.session_suggest(sid, [], h=self.size // 2,
                                      w=self.size // 2, k=9)

@@ -21,8 +21,7 @@ splits the two sides:
 A captured program overwrites its outputs on the next replay, so everything
 an in-flight frame carries is a copy of its own (``model._keep``,
 ``graphs.read_async``). The hint mirrors are rasterized on the host from the
-submitted table by the plain version of K1 (the JAX class calls its native
-host rasterizer).
+submitted table by the native host runtime (``ops.host.rasterize_hints``).
 
 Single consumer: call ``submit`` / ``latest`` from one thread.
 """
@@ -32,9 +31,8 @@ from __future__ import annotations
 from collections import deque
 
 import numpy as np
-import torch
 
-from ..ops import hints as oh
+from ..ops import host
 from . import graphs
 
 
@@ -118,17 +116,13 @@ class InteractiveSession:
         frame_np = finish()
         self.frames_materialized += 1
         m = self.model
-        # dense numpy hint mirrors for the getters and the save surface:
-        # the plain rasterizer on the host table's live slots
-        boxes, values, count = self._last_table
+        # dense numpy hint mirrors for the getters and the save surface,
+        # rasterized on the host by the native runtime
         from ..api.colorize import ColorizeImageBase
-        n = min(max(count, 0), len(boxes))
-        live = slice(0, max(n, 1))        # dead slots cannot change a pixel
-        ab, mask = oh.rasterize_hints(torch.from_numpy(boxes[live]),
-                                      torch.from_numpy(values[live]), n,
-                                      m.Xd)
-        ColorizeImageBase.net_forward(m, ab.permute(2, 0, 1).numpy(),
-                                      mask.permute(2, 0, 1).numpy())
+        boxes, values, count = self._last_table
+        ab, mask = host.rasterize_hints(boxes, values, count, m.Xd)
+        ColorizeImageBase.net_forward(m, ab.transpose(2, 0, 1),
+                                      mask.transpose(2, 0, 1))
         m._dev_output_ab = out_ab
         # the net-size frame is already on the host when it IS the display
         # frame, else it stays on the device (read back on first use)

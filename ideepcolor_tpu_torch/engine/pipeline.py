@@ -83,6 +83,47 @@ def sup_fullres(planes: torch.Tensor, rh0: torch.Tensor,
     return compose_rgb_u8(50.0 * up[..., :1], up[..., 1:])
 
 
+# ab quantization of the abq click's payload: uint8 over [-110, 110] (the
+# reference's ab clamp), 0.863 ab units a step, finer than what the uint8
+# RGB frame itself leaves of the requantized ab; rounded half to even, as
+# jnp.round rounds
+AB_CLIP = 110.0
+AB_Q_SCALE = 255.0 / 220.0
+
+
+def quantize_ab_u8(ab: torch.Tensor) -> torch.Tensor:
+    """ab in f32 -> uint8 steps of 1 / AB_Q_SCALE over [-AB_CLIP, AB_CLIP]:
+    clip, add AB_CLIP, scale, round half to even (the JAX order of f32
+    operations)."""
+    return torch.round((ab.clamp(-AB_CLIP, AB_CLIP) + AB_CLIP)
+                       * AB_Q_SCALE).to(torch.uint8)
+
+
+def make_table_click_abq_program(apply_fn, size: int, half: bool = False,
+                                 device=None):
+    """The table click that returns only the uint8-quantized ab prediction:
+    K1 -> U-Net -> (``half``: the phase-correct 2x2 mean, cv2's INTER_AREA,
+    whose pixel centers sit where the host's half-pixel cubic upsample
+    expects them) -> :func:`quantize_ab_u8`.
+
+    ``click(l_mc, boxes, values, count)`` gives ``(abq (S,S,2) uint8, or
+    (S/2,S/2,2) with half, hints)``. The frame is composed on the host from
+    the L plane the host already has (``api.colorize.compose_net_abq_host``):
+    the payload is 2/3 of the RGB frame's bytes, 1/6 with ``half``."""
+
+    @torch.no_grad()
+    def click(l_mc, boxes, values, count):
+        hints = k1.rasterize_hints_planar(boxes, values, count, size)
+        pred = apply_fn(l_mc.permute(2, 0, 1)[None], hints[None, :2],
+                        hints[None, 2:])[0]
+        if half:
+            s = size // 2
+            pred = pred.reshape(2, s, 2, s, 2).mean(dim=(2, 4))
+        return quantize_ab_u8(pred.permute(1, 2, 0)).contiguous(), hints
+
+    return graphs.program(click, device)
+
+
 def make_table_click_program(apply_fn, size: int, device=None):
     """The table click: K1 -> U-Net -> K2's fused entry (frame and
     requantized ab).
@@ -189,6 +230,36 @@ def make_table_click_win_suggest_program(apply_fn, size: int, device=None):
                                ).clamp(0.0, 1.0)
         cur = pixel_at(prev_rgb, h, w).to(torch.float32) / 255.0
         return rgb, out_ab, win, torch.cat([cur[None], colors], 0), hints
+
+    return graphs.program(click, device)
+
+
+def make_table_click_suggest_program(apply_fn, size: int, device=None):
+    """Dist-session click + suggestions without the device window frame,
+    packed into one buffer for one readback: K1 -> U-Net -> K2's fused
+    entry -> the suggestion chain at the click pixel (h, w).
+
+    ``click(l_net, l_mc, boxes, values, count, dist_map, h, w, centers_tbl,
+    prev_rgb, generator, K=9, N=25000, map_div=1)`` gives ``(packed
+    (S+1,S,3) uint8, out_ab, hints)``: ``packed[:S]`` the frame,
+    ``packed[S, :K+1]`` the palette, row 0 the PREVIOUS frame's pixel at the
+    click (exact), then the K suggestions at the pixel's L as
+    ``round(colors * 255)``. The caller composes the window frame on the
+    host (``api.colorize.compose_window_host``)."""
+    table_click = make_table_click_program(apply_fn, size)
+
+    @torch.no_grad()
+    def click(l_net, l_mc, boxes, values, count, dist_map, h, w,
+              centers_tbl, prev_rgb, generator, K=9, N=25000, map_div=1):
+        rgb, out_ab, hints = table_click(l_net, l_mc, boxes, values, count)
+        centers, _conf = suggest_at(dist_map, h // map_div, w // map_div,
+                                    centers_tbl, generator, K=K, N=N)
+        colors = cs.lab_to_rgb(_palette_lab(l_net, h, w, centers)
+                               ).clamp(0.0, 1.0)
+        pal = torch.cat([pixel_at(prev_rgb, h, w)[None],
+                         torch.round(colors * 255.0).to(torch.uint8)], 0)
+        row = torch.cat([pal, pal.new_zeros((size - K - 1, 3))], 0)
+        return torch.cat([rgb, row[None]], 0), out_ab, hints
 
     return graphs.program(click, device)
 

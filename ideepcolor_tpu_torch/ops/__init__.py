@@ -1,1 +1,2 @@
-"""Tensor ops of the port: colorspace, hints, resize, and the CUDA kernels."""
+"""Tensor ops of the port: colorspace, hints, resize, the CUDA kernels, and
+the native host runtime (``host``)."""

@@ -24,7 +24,7 @@ import threading
 import numpy as np
 import torch
 
-from ..ops.colorspace import rgb_to_lab
+from ..ops import host
 from ..ops.resize import resize_u8_pil_bilinear
 from ..utils.imageio import UnsupportedImage, decode_image
 
@@ -115,8 +115,10 @@ class ImageFolderLoader:
             while len(imgs) < self.batch_size:    # pad failed decodes
                 imgs.append(imgs[-1] if imgs else
                             np.zeros((self.size, self.size, 3), np.float32))
-            lab = rgb_to_lab(torch.from_numpy(np.stack(imgs))).permute(
-                0, 3, 1, 2)
+            rgb = np.stack(imgs)
+            # Lab on the host by the native runtime (OpenMP over the batch)
+            lab = torch.from_numpy(host.rgb2lab(rgb.reshape(-1, 3)).reshape(
+                rgb.shape)).permute(0, 3, 1, 2)
             batch = {"l": lab[:, :1].contiguous(),
                      "ab": lab[:, 1:].contiguous()}
             # retry the SAME batch until consumed: rebuilding on a full

@@ -6,11 +6,13 @@ load_size 64 (the JAX layout ``.npz``, read by both packages' loaders) and
 the same events in the same order: an image load, clicks with colors (the
 dist session's click+suggest click), a drag through the async session, a
 palette pick, an erase, a wheel step, a session save and the dense fallback
-past MAX_HINTS. The JAX GUI composes its window on the device
-(``IDEEPCOLOR_WIN_COMPOSE=device``, ``IDEEPCOLOR_NET_CLICK=rgb``) and reads
-its image with cv2, whose INTER_CUBIC resize runs without IPP here (the
-port copies OpenCV's own arithmetic; an IPP build takes IPP's, see
-test_torch_frontend_io.py).
+past MAX_HINTS. Both GUIs compose their window on the device
+(``IDEEPCOLOR_WIN_COMPOSE=device``, ``IDEEPCOLOR_NET_CLICK=rgb``); a second
+pair composes it on the host (``IDEEPCOLOR_WIN_COMPOSE=host``, each package
+with its native host library; JAX's built into a temporary directory,
+``_jax_host.py``). The JAX GUI reads its image with cv2, whose INTER_CUBIC
+resize runs without IPP here (the port copies OpenCV's own arithmetic; an
+IPP build takes IPP's, see test_torch_frontend_io.py).
 
 Frames. The net frames agree within the port's f32 frame bound, <= 1 LSB
 on < 1e-3 of the pixels; there the two packages' f32 convs flip a byte on
@@ -38,8 +40,12 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import _fake_qt  # noqa: E402
 
 import torch  # noqa: E402
+from ideepcolor_tpu.ops import host as jhost  # noqa: E402
+
+from _jax_host import use_jax_native  # noqa: E402
 
 torch.set_num_threads(2)
+JAX_GET_LIB = jhost.get_lib
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TEACHER = os.path.join(ROOT, "weights", "teacher.npz")
 LOAD, WIN = 64, 256
@@ -85,13 +91,14 @@ def _tables_agree(a, b):
     np.testing.assert_allclose(va, vb, atol=1e-4)
 
 
-@pytest.fixture(scope="module")
-def pair(tmp_path_factory):
-    """(jax qt_gui, jax GUIDraw, port qt_gui, port GUIDraw, image path),
-    both loaded with the same PNG."""
+def _gui_pair(tmp_path_factory, compose):
+    """Yields (jax qt_gui, jax GUIDraw, port qt_gui, port GUIDraw, image
+    path), both loaded with the same PNG, both composing their window on
+    ``compose`` ("device" or "host")."""
     try:
-        import PyQt5  # noqa: F401
-        pytest.skip("real PyQt5 present; fake-Qt harness not applicable")
+        import PyQt5
+        if getattr(PyQt5, "__file__", None):    # the stand-in has none
+            pytest.skip("real PyQt5 present; fake-Qt harness not applicable")
     except ImportError:
         pass
     import cv2
@@ -101,12 +108,15 @@ def pair(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     _fake_qt.install()
     cv2.ipp.setUseIPP(False)
-    mp.setenv("IDEEPCOLOR_WIN_COMPOSE", "device")
+    mp.setenv("IDEEPCOLOR_WIN_COMPOSE", compose)
     mp.setenv("IDEEPCOLOR_NET_CLICK", "rgb")
-    import ideepcolor_tpu.ops.host as jhost
-    # the JAX GUI would build its native host library with g++ into the
-    # shared package path from this worker; its numpy path serves here
-    mp.setattr(jhost, "get_lib", lambda: None)
+    if compose == "device":
+        # the JAX GUI would build its native host library with g++ into
+        # the shared package path from this worker; its numpy path serves
+        mp.setattr(jhost, "get_lib", lambda: None)
+    else:
+        mp.setattr(jhost, "get_lib", JAX_GET_LIB)
+        use_jax_native(mp, tmp_path_factory.mktemp("jax_hostops"))
     from ideepcolor_tpu import api as japi
     from ideepcolor_tpu.ui import qt_gui as jgui
     from ideepcolor_tpu_torch import api as tapi
@@ -128,6 +138,7 @@ def pair(tmp_path_factory):
     tdraw = tgui.GUIDraw(tm, dist_model=td, load_size=LOAD, win_size=WIN)
     jdraw.init_result(path)
     tdraw.init_result(path)
+    assert jdraw._win_host == tdraw._win_host == (compose == "host")
     yield jgui, jdraw, tgui, tdraw, path
     mp.undo()
     cv2.ipp.setUseIPP(ipp)
@@ -136,6 +147,16 @@ def pair(tmp_path_factory):
             sys.modules.pop(k, None)
         else:
             sys.modules[k] = v
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    yield from _gui_pair(tmp_path_factory, "device")
+
+
+@pytest.fixture(scope="module")
+def host_pair(tmp_path_factory):
+    yield from _gui_pair(tmp_path_factory, "host")
 
 
 def test_image_load_gives_the_same_window_and_planes(pair):
@@ -356,3 +377,67 @@ def test_main_window_wiring(pair):
     p.mousePressEvent(_fake_qt._Event(8 + 26, 8, _fake_qt.Qt.LeftButton))
     assert p.id == 1 and win.gamutWidget.pos is not None
 
+
+
+def test_host_compose_session_matches_jax(host_pair):
+    """Both GUIs with IDEEPCOLOR_WIN_COMPOSE=host: the window twins (the
+    window L plane by the host rgb2lab, the cubic matrices) are JAX's; after
+    the image load, clicks with colors (net_forward_table_suggest_host), a
+    drag (net frames through the async session, windows composed in
+    _fetch_async), a palette pick and an erase (net_forward_table_win_host)
+    the net frames agree within the frame bound, the port's compose of
+    JAX's net frame is JAX's window byte for byte, the windows end to end
+    within WIN_*, and the hint tables and mirrors agree."""
+    from ideepcolor_tpu_torch.api.colorize import compose_window_host
+    _, jdraw, _, tdraw, _ = host_pair
+    np.testing.assert_array_equal(tdraw._host_l_win_pad,
+                                  jdraw._host_l_win_pad)
+    np.testing.assert_array_equal(tdraw._host_win_rh, jdraw._host_win_rh)
+    np.testing.assert_array_equal(tdraw._host_win_rw, jdraw._host_win_rw)
+    palettes = {"j": [], "t": []}
+    for key, draw in (("j", jdraw), ("t", tdraw)):
+        draw.suggest_colors.connect(
+            lambda c, k=key: palettes[k].append(np.array(c)))
+
+    def check(label):
+        jnet = jdraw.model.get_img_forward()
+        _frames_agree(tdraw.model.get_img_forward(), jnet)
+        np.testing.assert_array_equal(
+            compose_window_host(jnet, *tdraw._host_window())[
+                :tdraw.win_h, :tdraw.win_w], jdraw.result, label)
+        _frames_agree(tdraw.result, jdraw.result, WIN_LSB, WIN_SHARE)
+        _tables_agree(tdraw.uiControl.hint_table(),
+                      jdraw.uiControl.hint_table())
+        np.testing.assert_array_equal(tdraw.im_mask0, jdraw.im_mask0)
+        np.testing.assert_allclose(tdraw.im_ab0, jdraw.im_ab0, atol=1e-4)
+
+    check("load")
+    for (x, y), color in (((128, 128), (200, 40, 40)),
+                          ((60, 100), (40, 180, 90)),
+                          ((200, 170), (30, 60, 200))):
+        for draw in (jdraw, tdraw):
+            assert draw._can_fuse_suggest()
+            draw.user_color = color
+            draw.mousePressEvent(_fake_qt._Event(x, y, _fake_qt.Qt.LeftButton))
+        check(f"click {x},{y}")
+        jp, tp = palettes["j"][-1], palettes["t"][-1]
+        assert tp.shape == jp.shape == (10, 3)
+        np.testing.assert_array_equal(tp[0], jp[0])
+    for x in range(200, 210):                      # drag: 10 motion events
+        for draw in (jdraw, tdraw):
+            draw.mouseMoveEvent(_fake_qt._Event(x, 170))
+    assert tdraw._async.frames_submitted == 10 and tdraw._async.pending == 0
+    check("drag")
+    drag_frame = tdraw.result.copy()
+    tdraw.compute_result()                         # the sync host click
+    np.testing.assert_array_equal(drag_frame, tdraw.result)
+    jdraw.compute_result()
+    for draw in (jdraw, tdraw):                    # palette pick
+        draw.pos = _fake_qt.QPoint(209, 170)
+        draw.set_color((30, 180, 60))
+    check("palette pick")
+    for draw in (jdraw, tdraw):                    # erase
+        draw.mousePressEvent(_fake_qt._Event(60, 100,
+                                             _fake_qt.Qt.RightButton))
+    assert len(tdraw.uiControl.userEdits) == 2
+    check("erase")

@@ -86,8 +86,8 @@ def test_load_one_matches_jax_on_the_same_seed(tmp_path, augment):
 
 def test_folder_loader_matches_jax(tmp_path, numpy_lab):
     """workers=1, same seed: the same images in the same order, Lab within
-    2e-3 (the port's f32 rgb_to_lab against the host's f64 one; measured:
-    5.4e-5)."""
+    2e-3 (the port's native host rgb2lab against the JAX loader's numpy
+    form here, both f64 inside)."""
     root = corpus(str(tmp_path / "c"), [(90, 120), (77, 61), (64, 64)])
     jl = jdata.ImageFolderLoader(root, batch_size=3, size=32, seed=4,
                                  workers=1, prefetch=1)
