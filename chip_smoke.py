@@ -229,11 +229,36 @@ or more each; any failure exits non-zero:
    its device twin, and alone the 786 KB readback of K1's planes, the host
    rasterizer and the plain K1 on the host CPU at 10 and 200 hints, the
    two host composes;
-16. one JSON line listing each kernel entry with its launches on the eight
+16. the multi-device forms, the ninth path, with launch counts of their
+   own: meshes whose entries all name the card (``parallel.mesh.make_mesh
+   (devices=[card] * 8)``, the counterpart of XLA's forced host device
+   count). On the (1, 1) mesh under cuDNN's deterministic kernels, every
+   mesh= batch form on the teacher at Xd=256 (colorize_batch_table,
+   colorize_batch, suggest_batch_table K=9, stream_window_u8, N=T=8; and
+   colorize_batch_global on phase 11's seeded global net), one f32 train
+   step of the teacher (batch 8 at 64x64) and one w0.5 distill step,
+   byte for byte the single-device forms'. On the (4, 2) and (2, 2, 2)
+   meshes over the card x8: under deterministic kernels, every form at
+   N=19 (padded to 20; the global form 7 to 8), palettes included, byte
+   for byte the single-device forms run chunk by chunk as the mesh splits
+   the batch; with the default kernels, the forms at N=16 and 19 against
+   the unsharded call on the whole batch within MESH_FRAME_BOUND (the
+   palettes' distance printed), the train and distill steps within the
+   TRAIN_* bounds of the single-device steps. The server with
+   ``use_mesh`` where ``local_devices`` gives the card 8 times: health's
+   mesh, the alignment, /colorize_batch (5 images) against the unsharded
+   form (MESH_FRAME_BOUND) and the API's f32 clicks (TF32_BOUND). K1's two
+   entries and K2's
+   single-frame and batched entries must launch; the references are made
+   after the counts are read. Printed: the sharded colorize_batch_table
+   N=16 against the unsharded call and a train step on each mesh (host
+   clock; on one card that is the cost of the split, the copies and the
+   gather, not scaling), the phase's peak memory;
+17. one JSON line listing each kernel entry with its launches on the nine
    paths, its error against the plain version, its time, the plain
    version's, its bound and what sets it, and the shape and plane layout
    those numbers were measured at;
-17. last line: {"ok": true, "device": {...}}.
+18. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -352,6 +377,22 @@ HOST_TIMED = 30
 ABQ_BOUND = {"abq": (16, 45.0), "abq_half": (96, 33.0)}
 PAYLOAD_FLIP_SHARE = 1e-3
 ABQ_SERVER_BOUND = (16, 1e-3)
+# phase 16, the multi-device forms on meshes whose entries all name the card:
+# the batch sizes on the (4, 2) and (2, 2, 2) meshes (16 divides their
+# alignment 4, 19 does not), the global form's (its unsharded reference is
+# the 13.7 GiB transient of lever L2 at N=8), the train and distill steps'
+# batch and size, and the timed calls per form
+MESH_N = (16, 19)
+MESH_GLOBAL_N = 7
+MESH_TRAIN_BATCH, MESH_TRAIN_SIZE = 8, 64
+MESH_TIMED = 5
+# a repeated mesh's chunks (4 or 5 images; 1 on the server's (8, 1) mesh)
+# run at TF32 with other cuDNN kernels than the whole batch of 16-19: frames
+# against the unsharded call, max LSB and share of the pixels (measured on
+# an H100: 1 LSB on at most 4.41e-3; JAX's 1e-3 holds on the CPU). Against
+# the single-device forms run chunk by chunk, as the mesh splits the batch,
+# under deterministic kernels the frames and palettes are held equal
+MESH_FRAME_BOUND = (1, 1e-2)
 
 
 def die(msg: str) -> None:
@@ -2205,6 +2246,410 @@ def host_phase(entries, dev) -> dict:
     return phase_launches
 
 
+def mesh_phase(entries, dev, global_sd) -> dict:
+    """Phase 16: the multi-device forms on ``dev`` (the card; "cpu"
+    rehearses the phase's control flow): meshes whose entries all name the
+    one device, so the split, padding, gather and gradient sum of a (4, 2)
+    and a (2, 2, 2) mesh run as on eight devices. Returns the phase's
+    launches per kernel entry (the ninth count), read before any reference
+    is made."""
+    import http.client
+    import io
+    import threading
+
+    import torch
+    from ideepcolor_tpu_torch.api import ColorizeImageTorch
+    from ideepcolor_tpu_torch.apps import serve
+    from ideepcolor_tpu_torch.engine import batch as B
+    from ideepcolor_tpu_torch.models import caffe_net, siggraph
+    from ideepcolor_tpu_torch.ops import hints
+    from ideepcolor_tpu_torch.ops.colorspace import rgb_to_lab
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+    from ideepcolor_tpu_torch.ops.quantize import make_pts_grid
+    from ideepcolor_tpu_torch.ops.resize import resize_u8_pil_bilinear
+    from ideepcolor_tpu_torch.parallel import mesh as pmesh
+    from ideepcolor_tpu_torch.train import distill as TD
+    from ideepcolor_tpu_torch.train import step as TS
+
+    on_card = dev.type == "cuda"
+    # K1's batched entry rasterizes the table and suggest forms' tables,
+    # its by-value entry the window's one table; K2's batched entry composes
+    # every frame, its single-frame entry the palettes
+    mesh_entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_BATCH)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def clock(fn, n=MESH_TIMED):
+        fn()
+        sync()
+        ts = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    for k in entries:
+        k.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    meshes = {"(1,1)": pmesh.make_mesh(1, 1, devices=[dev]),
+              "(4,2)": pmesh.make_mesh(8, 2, devices=[dev] * 8),
+              "(2,2,2)": pmesh.make_hybrid_mesh(2, 2, devices=[dev] * 8)}
+    teacher_sd = siggraph.load_state_dict_file(WEIGHTS)
+    net = siggraph.as_module(teacher_sd, dev)
+    gnet = caffe_net.as_module(global_sd, dev, "global")
+
+    # inputs: images with tables of 0-10 hints, click pixels, histograms
+    # (row 0 all zero: the glob_dist=-1 sentinel), gray frames
+    n_max = max(MESH_N)
+    imgs = np.stack([image(1600 + i, S, S) for i in range(n_max)])
+    tabs = [hints.points_json_to_table(session_hints(i % 11, 1600 + i), S)
+            for i in range(n_max)]
+    bx = np.stack([t[0] for t in tabs])
+    vl = np.stack([t[1] for t in tabs])
+    ct = np.array([t[2] for t in tabs], np.int32)
+    rng = np.random.default_rng(16)
+    hs = rng.integers(0, S, n_max).astype(np.int32)
+    ws = rng.integers(0, S, n_max).astype(np.int32)
+    glob = np.zeros((n_max, 314), np.float32)
+    for i in range(1, n_max):
+        bins = rng.integers(0, 313, 9)
+        glob[i, bins] = rng.random(9)
+        glob[i, :313] /= glob[i, :313].sum()
+        glob[i, 313] = 1.0
+    gray = imgs.mean(-1, keepdims=True).astype(np.uint8)
+
+    def forms(n, n_global, **where):
+        """Every mesh= batch form at n images (the global form at
+        n_global), on ``where``'s mesh or device."""
+        t = slice(0, n)
+        return {
+            "colorize_batch_table": B.colorize_batch_table(
+                net, imgs[t], bx[t], vl[t], ct[t], **where),
+            "colorize_batch": B.colorize_batch(net, imgs[t], **where),
+            "suggest_batch_table": B.suggest_batch_table(
+                net, imgs[t], bx[t], vl[t], ct[t], hs[t], ws[t],
+                K=SUGGEST_K, seed=5, **where),
+            "colorize_batch_global": B.colorize_batch_global(
+                gnet, imgs[:n_global], glob[:n_global], **where),
+            "stream_window_u8": B.stream_window_u8(net, gray[t], *tabs[10],
+                                                   **where)}
+
+    centers = torch.as_tensor(make_pts_grid(), dtype=torch.float32,
+                              device=dev)
+
+    def chunked(align, n, n_global):
+        """The single-device forms run chunk by chunk as a mesh of batch
+        alignment ``align`` splits the batch (padded with row 0, as it
+        pads): what its positions compute, gathered."""
+        parts: dict = {}
+        for form, k in (("colorize_batch_table", n), ("colorize_batch", n),
+                        ("suggest_batch_table", n),
+                        ("colorize_batch_global", n_global),
+                        ("stream_window_u8", n)):
+            rows = np.array(list(range(k)) + [0] * ((-k) % align))
+            m = len(rows) // align
+            for j in range(align):
+                c = rows[j * m:(j + 1) * m]
+                if form == "colorize_batch_table":
+                    out = B.colorize_batch_table(net, imgs[c], bx[c], vl[c],
+                                                 ct[c], device=dev)
+                elif form == "colorize_batch":
+                    out = B.colorize_batch(net, imgs[c], device=dev)
+                elif form == "colorize_batch_global":
+                    out = B.colorize_batch_global(gnet, imgs[c], glob[c],
+                                                  device=dev)
+                elif form == "stream_window_u8":
+                    out = B.stream_window_u8(net, gray[c], *tabs[10],
+                                             device=dev)
+                else:   # the palettes keep each image's global index
+                    as_t = lambda a: torch.as_tensor(  # noqa: E731
+                        a[c], device=dev)
+                    colors, conf = B.batch_suggest_table(
+                        net, B._prep_l_mc(B._images(imgs[c], dev)),
+                        as_t(bx), as_t(vl), as_t(ct), as_t(hs), as_t(ws),
+                        centers, seed=5, K=SUGGEST_K, index0=j * m)
+                    out = (colors.cpu().numpy(), conf.cpu().numpy())
+                parts.setdefault(form, []).append(out)
+        return {form: (tuple(np.concatenate([o[i] for o in outs])[:n]
+                             for i in range(2))
+                       if isinstance(outs[0], tuple)
+                       else np.concatenate(outs)[:n_global if form ==
+                                                 "colorize_batch_global"
+                                                 else n])
+                for form, outs in parts.items()}
+
+    # the train and distill steps: 8 seeded images at 64x64, f32
+    small = [resize_u8_pil_bilinear(image(1700 + i, 300, 340),
+                                    (MESH_TRAIN_SIZE, MESH_TRAIN_SIZE))
+             for i in range(MESH_TRAIN_BATCH)]
+    lab = rgb_to_lab(torch.from_numpy(np.stack(small)).float() / 255.0)
+    batch = {"l": lab[..., :1].permute(0, 3, 1, 2).contiguous().to(dev),
+             "ab": lab[..., 1:].permute(0, 3, 1, 2).contiguous().to(dev)}
+    cfg = TS.TrainConfig(precision_name="highest")
+    dcfg = TD.DistillConfig(width=0.5, precision_name="highest")
+    student_sd = siggraph.load_state_dict_file("weights/student_w05.npz")
+    teacher = TD.teacher_params(teacher_sd, "float32", dev)
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(7)
+
+    def train(mesh=None):
+        """One train step of the teacher -> (loss, params whole on the
+        host, host ms of the step)."""
+        state = TS.init_state(cfg, teacher_sd, device=dev)
+        if mesh is None:
+            step = TS.make_train_step(cfg)
+        else:
+            step, shard_state, shard_batch = TS.make_sharded_train_step(
+                cfg, mesh)
+            state = shard_state(state)
+        b = batch if mesh is None else shard_batch(batch)
+        sync()
+        t0 = time.perf_counter()
+        state, aux = step(state, b, gen())
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (float(aux["loss"]), {k: v.cpu() for k, v in
+                                     TS.full_params(state["params"]).items()},
+                ms)
+
+    def distill(mesh=None):
+        state = TD.init_student(dcfg, student_sd, device=dev)
+        if mesh is None:
+            state, aux = TD.make_distill_step(dcfg)(state, teacher, batch,
+                                                    gen())
+        else:
+            step, shard_state, shard_batch, put_teacher = \
+                TD.make_sharded_distill_step(dcfg, mesh)
+            state, aux = step(shard_state(state), put_teacher(teacher),
+                              shard_batch(batch), gen())
+        return float(aux["loss"]), {k: v.cpu() for k, v in
+                                    TS.full_params(state["params"]).items()}
+
+    # -- the path, launches counted: the (1,1) mesh under cuDNN's
+    # deterministic kernels, then the repeated meshes with its defaults --
+    got = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        m11 = meshes["(1,1)"]
+        got["(1,1)", 8] = forms(8, 8, mesh=m11)
+        got["(1,1)", "train"] = train(m11)
+        got["(1,1)", "distill"] = distill(m11)
+        for name in ("(4,2)", "(2,2,2)"):
+            got[name, "chunks"] = forms(MESH_N[-1], MESH_GLOBAL_N,
+                                        mesh=meshes[name])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name in ("(4,2)", "(2,2,2)"):
+        m = meshes[name]
+        for n in MESH_N:
+            got[name, n] = forms(n, MESH_GLOBAL_N, mesh=m)
+        got[name, "train"] = train(m)
+        got[name, "distill"] = distill(m)
+
+    # the server with --mesh where local_devices gives the card 8 times: an
+    # (8, 1) mesh of alignment 8; /colorize_batch of 5 images pads to 8
+    hook = pmesh.local_devices
+    pmesh.local_devices = lambda device_type="cuda": [dev] * 8
+    try:
+        srv = serve.make_server(port=0, size=S, device=dev.type,
+                                weights=WEIGHTS, dtype="float32",
+                                auto_batch=8, use_mesh=True)
+    finally:
+        pmesh.local_devices = hook
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        def request(method, path, body=None):
+            c = http.client.HTTPConnection(*srv.server_address, timeout=300)
+            c.request(method, path, body=body)
+            r = c.getresponse()
+            data = r.read()
+            c.close()
+            if r.status != 200:
+                die(f"mesh server: {method} {path} answered {r.status}: "
+                    f"{data[:200]!r}")
+            return data
+
+        health = json.loads(request("GET", "/healthz"))
+        buf = io.BytesIO()
+        np.savez(buf, images=imgs[:5], boxes=bx[:5], values=vl[:5],
+                 counts=ct[:5])
+        with np.load(io.BytesIO(request("POST", "/colorize_batch",
+                                        buf.getvalue()))) as z:
+            served = z["frames"]
+        svc = srv.RequestHandlerClass.service
+        align = svc.batcher.align
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    sync()
+    path_s = time.perf_counter() - t_phase
+    launches = {k.name: k.launches for k in entries}
+    for k in mesh_entries:
+        if on_card and launches[k.name] == 0:
+            die(f"kernel {k.name} was not launched on the mesh path")
+
+    # -- the references, after the counts --
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = forms(8, 8, device=dev)
+        want_train, want_distill = train(), distill()
+        want_chunks = {
+            a: chunked(a, MESH_N[-1], MESH_GLOBAL_N)
+            for a in {B.mesh_batch_align(meshes[k]) for k in ("(4,2)",
+                                                              "(2,2,2)")}}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for form, out in got["(1,1)", 8].items():
+        pairs = zip(out, want[form]) if isinstance(out, tuple) else \
+            [(out, want[form])]
+        if not all(np.array_equal(a, b) for a, b in pairs):
+            die(f"{form} on the (1,1) mesh differs from the single-device "
+                f"form under deterministic convolutions")
+    for label, (loss, params, *_), (w_loss, w_params, *_) in (
+            ("train", got["(1,1)", "train"], want_train),
+            ("distill", got["(1,1)", "distill"], want_distill)):
+        if loss != w_loss or not all(torch.equal(params[k], w_params[k])
+                                     for k in w_params):
+            die(f"the {label} step on the (1,1) mesh differs from the "
+                f"single-device step")
+    print(f"mesh (1,1) on {dev}, deterministic convolutions: "
+          f"{', '.join(want)} (N=8, K={SUGGEST_K}, T=8), the teacher's f32 "
+          f"train step (batch {MESH_TRAIN_BATCH} at {MESH_TRAIN_SIZE}x"
+          f"{MESH_TRAIN_SIZE}) and a w0.5 distill step: byte for byte the "
+          f"single-device forms' (frames, palettes, loss, every param)")
+
+    for name in ("(4,2)", "(2,2,2)"):
+        ref = want_chunks[B.mesh_batch_align(meshes[name])]
+        for form, out in got[name, "chunks"].items():
+            pairs = zip(out, ref[form]) if isinstance(out, tuple) else \
+                [(out, ref[form])]
+            if not all(np.array_equal(a, b) for a, b in pairs):
+                die(f"{form} N={MESH_N[-1]} on the {name} mesh differs from "
+                    f"the single-device form run chunk by chunk under "
+                    f"deterministic convolutions")
+    print(f"meshes (4,2) and (2,2,2) over {dev} x8, deterministic "
+          f"convolutions, N={MESH_N[-1]} padded to 20 (global "
+          f"N={MESH_GLOBAL_N} to 8): every form, palettes and confidences "
+          f"included, byte for byte the single-device forms run chunk by "
+          f"chunk as the mesh splits the batch")
+
+    refs = {n: forms(n, MESH_GLOBAL_N, device=dev) for n in MESH_N}
+    worst, palettes = {}, []
+    for name in ("(4,2)", "(2,2,2)"):
+        for n in MESH_N:
+            for form, out in got[name, n].items():
+                ref = refs[n][form]
+                if form == "suggest_batch_table":
+                    d = np.abs(out[0].astype(int) - ref[0].astype(int))
+                    palettes.append((f"{name} N={n}", int(d.max()),
+                                     float(np.mean(d != 0))))
+                    continue
+                moved = frame_check(f"{form} N={n} on the {name} mesh", out,
+                                    ref, *MESH_FRAME_BOUND)
+                worst[form] = max(worst.get(form, 0.0), moved)
+    print(f"meshes (4,2) and (2,2,2) over {dev} x8, default convolutions, "
+          f"N={' and '.join(map(str, MESH_N))} (global N={MESH_GLOBAL_N}) "
+          f"against the unsharded call on the whole batch (TF32 chunks of "
+          f"4-5 against a batch of 16-19): frames within "
+          f"{MESH_FRAME_BOUND[0]} LSB on < {MESH_FRAME_BOUND[1]} of the "
+          f"pixels (most moved: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+          + "); palettes, for information (the TF32 dist forward moves "
+          "sampled bins and the k-means may settle elsewhere): "
+          + ", ".join(f"{k} max {m} LSB on {f:.2e} of the values"
+                      for k, m, f in palettes))
+
+    ref_train = train()
+    train_ms = {"one device": float(np.median(
+        [ref_train[2]] + [train()[2] for _ in range(2)]))}
+    for label, ref in (("train", ref_train), ("distill", distill())):
+        for name in ("(4,2)", "(2,2,2)"):
+            loss, params = got[name, label][:2]
+            loss_rel = abs(loss - ref[0]) / abs(ref[0])
+            lr = cfg.lr if label == "train" else dcfg.lr
+            dw = torch.cat([(params[k] - ref[1][k]).abs().flatten()
+                            for k in ref[1]]) / lr
+            dw_max, dw_share = float(dw.max()), float((dw > 1e-3).double()
+                                                      .mean())
+            print(f"{label} step on the {name} mesh against one device "
+                  f"(f32 highest, same weights and generator): loss "
+                  f"relative {loss_rel:.2e} (bound {TRAIN_LOSS_BOUND}); max "
+                  f"|dw| {dw_max:.4f} lr (bound {TRAIN_DW_BOUND}), "
+                  f"{dw_share:.3e} of the weights more than 1e-3 lr apart "
+                  f"(bound {TRAIN_DW_SHARE})")
+            if loss_rel > TRAIN_LOSS_BOUND or dw_max > TRAIN_DW_BOUND \
+                    or dw_share > TRAIN_DW_SHARE:
+                die(f"{label} step on the {name} mesh: past the bounds")
+
+    # the server's frames: against the unsharded table form, and against
+    # the API's f32 table clicks (the batch runs at TF32)
+    if health["mesh"] != {"data": 8, "model": 1} or align != 8:
+        die(f"mesh server: health mesh {health['mesh']}, alignment {align}")
+    plain = B.colorize_batch_table(net, imgs[:5], bx[:5], vl[:5], ct[:5],
+                                   device=dev)
+    moved = frame_check("mesh server /colorize_batch against the unsharded "
+                        "form", served, plain, *MESH_FRAME_BOUND)
+    api = ColorizeImageTorch(Xd=S, device=dev)
+    api.prep_net(path=WEIGHTS)
+    clicks = []
+    for i in range(5):
+        api.set_image(imgs[i])
+        clicks.append(api.net_forward_table(*tabs[i]).copy())
+    s_lsb, s_equal = B.frame_delta_stats(served, np.stack(clicks))
+    if s_lsb > TF32_BOUND["max_lsb"] or s_equal < TF32_BOUND["equal"]:
+        die(f"mesh server /colorize_batch against the API's clicks: {s_lsb} "
+            f"LSB, {s_equal:.4f} equal")
+    print(f"server --mesh (local_devices gives {dev} 8 times): health mesh "
+          f"{health['mesh']}, auto-batch alignment {align}; /colorize_batch "
+          f"N=5 (padded to 8, chunks of 1): {moved:.2e} of the pixels 1 LSB "
+          f"from the unsharded call, and {s_lsb} LSB, {s_equal:.4f} of the "
+          f"pixels equal against the "
+          f"API's f32 table clicks (bounds {TF32_BOUND['max_lsb']} LSB, "
+          f"{TF32_BOUND['equal']})")
+
+    # times on the host clock: on one card the split, copies and gather of
+    # a repeated mesh, not scaling
+    smi = ""
+    if on_card:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    n = MESH_N[0]
+    t_single = clock(lambda: B.colorize_batch_table(
+        net, imgs[:n], bx[:n], vl[:n], ct[:n], device=dev))
+    t_mesh = {name: clock(lambda: B.colorize_batch_table(
+        net, imgs[:n], bx[:n], vl[:n], ct[:n], mesh=meshes[name]))
+        for name in ("(4,2)", "(2,2,2)")}
+    for name in ("(1,1)", "(4,2)", "(2,2,2)"):
+        train_ms[name + " mesh"] = float(np.median(
+            [train(meshes[name])[2] for _ in range(3)]))
+    peak = (torch.cuda.max_memory_allocated() / 2**30) if on_card else 0.0
+    print(f"mesh times on one card ({smi or dev}; the split, copy and "
+          f"gather of a mesh that repeats the card, not scaling; host clock, "
+          f"median of {MESH_TIMED}, frames read back): colorize_batch_table "
+          f"N={n} unsharded {t_single:.2f} ms, "
+          + ", ".join(f"on the {k} mesh {v:.2f} ms" for k, v in
+                      t_mesh.items())
+          + "; one f32 train step of the teacher (batch "
+          f"{MESH_TRAIN_BATCH} at {MESH_TRAIN_SIZE}x{MESH_TRAIN_SIZE}, "
+          "median of 3): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in train_ms.items()))
+    print(f"mesh phase: path {path_s:.1f} s, whole phase "
+          f"{time.perf_counter() - t_phase:.1f} s, peak device memory "
+          f"{peak:.3f} GiB allocated; launches on the mesh path "
+          + ", ".join(f"{k.name} {launches[k.name]}" for k in entries))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3904,8 +4349,10 @@ def main() -> int:
                        "table": fps["table", False]})
     # 15. the native host runtime and the host-composed clicks (eighth)
     host_ops_launches = host_phase(entries, dev)
+    # 16. the multi-device forms on meshes that repeat the card (ninth)
+    mesh_launches = mesh_phase(entries, dev, sds["global"])
 
-    # 16. the kernels line
+    # 17. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -3918,7 +4365,8 @@ def main() -> int:
                          + server_launches[k.name]
                          + train_launches[k.name]
                          + frontend_launches[k.name]
-                         + host_ops_launches[k.name]),
+                         + host_ops_launches[k.name]
+                         + mesh_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
@@ -3927,9 +4375,10 @@ def main() -> int:
             "launches_train_eval": train_launches[k.name],
             "launches_frontends": frontend_launches[k.name],
             "launches_host_ops": host_ops_launches[k.name],
+            "launches_mesh": mesh_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 17.
+    # 18.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -45,15 +45,15 @@ Where it differs from the JAX server:
   (there is nothing to compile); ``ready_probe``'s stages are
   ``probe_cuda_init_s``, ``probe_first_dispatch_s`` and
   ``probe_program_load_s``.
-* ``health()["device"]`` is the card's name, or ``"cpu"``; ``"mesh"`` is
-  always None: the sharded batch waits for the port of the mesh forms.
+* ``health()["device"]`` is the card's name, or ``"cpu"``.
 * ``IDEEPCOLOR_NET_CLICK=abq[_half]`` makes net-size session clicks
   ``abq`` clicks (the uint8-quantized ab read back, the frame composed on
   the host), as in the JAX server; full-res session clicks stay ``rgb``.
 * ``RecycleGuard.recycle`` releases the card by synchronizing, dropping the
   captured graphs and emptying PyTorch's cache before the exec.
-* The service takes ``device`` (the card unless ``"cpu"``) and no
-  ``use_mesh``; ``main`` takes ``--device`` and refuses ``--mesh``.
+* The service takes ``device`` (the card unless ``"cpu"``); ``main`` takes
+  ``--device``. ``use_mesh`` / ``--mesh`` build their mesh from
+  ``parallel.mesh.local_devices`` of the service's device type.
 
 Run: ``python -m ideepcolor_tpu_torch.apps.serve --port 8723`` (add
 ``--device cpu`` to serve from the CPU).
@@ -87,6 +87,7 @@ from ..models import global_stats
 from ..ops import host
 from ..ops.hints import MAX_HINTS, points_json_to_table, put_points_json
 from ..ops.resize import resize_u8_half_pixel
+from ..parallel import mesh as pmesh
 from ..utils.imageio import UnsupportedImage, decode_image, encode_png
 from ..utils.profiling import StageTimer
 from ..utils.soakload import rss_mb
@@ -192,10 +193,11 @@ class _AutoBatcher:
     """Dynamic request batching: net-res /colorize requests that arrive
     while the device is busy coalesce into ONE batched forward
     (``engine.batch.colorize_batch_table``: K1's batched entry, one forward
-    at TF32, K2's batched entry). The collector takes the first queued
-    request, then admits whatever else arrives within ``max_wait_ms`` (or
-    until ``max_batch``); batches pad to power-of-two buckets, so a bounded
-    set of batch shapes ever runs."""
+    at TF32, K2's batched entry; split over the service's mesh where it has
+    one). The collector takes the first queued request, then admits
+    whatever else arrives within ``max_wait_ms`` (or until ``max_batch``);
+    batches pad to a fixed ladder of bucket sizes, so a bounded set of
+    batch shapes ever runs."""
 
     def __init__(self, service: "ColorizeService", model,
                  max_batch: int = 16, max_wait_ms: float = 5.0):
@@ -203,9 +205,27 @@ class _AutoBatcher:
         self.model = model          # which net this batcher dispatches
         # (the fast tier gets its own batcher; mixed models cannot share
         # one forward)
+        # batch shapes must divide the mesh's batch axes when sharded
+        self.align = 1
+        if service.mesh is not None:
+            self.align = (service.mesh.shape.get("data", 1)
+                          * service.mesh.shape.get("dcn", 1))
+            if self.align > max(int(max_batch), 1):
+                # padding above the configured bound would silently break
+                # the user's memory budget: make the conflict loud
+                raise ValueError(
+                    f"--auto-batch {max_batch} is below the mesh batch "
+                    f"alignment {self.align}; raise it or shrink the mesh")
+        # dispatch sizes come from a fixed bucket ladder: align-multiples
+        # doubling up to max_batch rounded DOWN to the alignment (never
+        # above the configured bound, mesh-valid shapes even for
+        # non-power-of-two device layouts)
         self.max_batch = max(int(max_batch), 1)
-        self.max_batch = 1 << (self.max_batch.bit_length() - 1)
-        b, self._buckets = 1, []
+        if self.align == 1:
+            self.max_batch = 1 << (self.max_batch.bit_length() - 1)
+        else:
+            self.max_batch = (self.max_batch // self.align) * self.align
+        b, self._buckets = self.align, []
         while b < self.max_batch:
             self._buckets.append(b)
             b *= 2
@@ -268,7 +288,7 @@ class _AutoBatcher:
                     frames = colorize_batch_table(
                         self.model.net, imgs, boxes, values, counts,
                         maskcent=float(self.model.mask_cent),
-                        device=svc.device)
+                        mesh=svc.mesh, device=svc.device)
                 self.dispatches += 1
                 self.batched_requests += n
                 for i, it in enumerate(items):
@@ -292,7 +312,7 @@ class ColorizeService:
                  maskcent: bool = False, dtype: str | None = "bfloat16",
                  auto_batch: int = 0, glob_weights: str = '',
                  student_weights: str = '', max_bulk_backlog: int = 0,
-                 device=None):
+                 device=None, use_mesh: bool = False):
         """dtype: serving precision, default bfloat16 (the convs on the
         tensor cores; frames within ``BF16_BOUND`` of f32); 'float32' for
         parity serving.
@@ -303,7 +323,12 @@ class ColorizeService:
         Retry-After instead of queueing unboundedly (0 = unbounded).
 
         device: the card unless "cpu" is asked for; without a card the
-        default raises."""
+        default raises.
+
+        use_mesh: split the bulk batches (``/colorize_batch``, the
+        auto-batcher) over a mesh of every local device of the service's
+        type (``parallel.mesh.local_devices``), where there is more than
+        one."""
         self.device = resolve_device(device)
         self.size = size
         # one staging buffer for every model's clicks: the graphs are
@@ -339,6 +364,11 @@ class ColorizeService:
         self._glob_weights = glob_weights
         self.timer = StageTimer(maxlen=1000)
         self.boot_stages: dict = {}   # filled by main(); in /healthz
+        self.mesh = None
+        if use_mesh:
+            devs = pmesh.local_devices(self.device.type)
+            if len(devs) > 1:
+                self.mesh = pmesh.make_mesh(devices=devs)
         self.batcher = (_AutoBatcher(self, self.model,
                                      max_batch=auto_batch)
                         if auto_batch > 0 else None)
@@ -727,13 +757,13 @@ class ColorizeService:
                 self.requests += 1
                 frames = colorize_batch_table(
                     self.model.net, images, boxes, values, counts,
-                    maskcent=maskcent, device=self.device)
+                    maskcent=maskcent, mesh=self.mesh, device=self.device)
         else:
             with self._bulk(), self.timer.stage("colorize_batch"):
                 self.requests += 1
                 frames = colorize_batch(
                     self.model.net, images, hint_ab=hint_ab,
-                    hint_mask=hint_mask, maskcent=maskcent,
+                    hint_mask=hint_mask, maskcent=maskcent, mesh=self.mesh,
                     device=self.device)
         buf = io.BytesIO()
         # uncompressed npz: photo-like uint8 frames barely compress and
@@ -790,7 +820,7 @@ class ColorizeService:
                         np.zeros((cap, MAX_HINTS, 2), np.float32),
                         np.zeros((cap,), np.int32),
                         maskcent=float(b.model.mask_cent),
-                        device=self.device)
+                        mesh=self.mesh, device=self.device)
         if suggest:
             self.suggest(body, h=self.size // 2, w=self.size // 2, k=9)
         # the session click path (the table click the GET / UI uses)
@@ -830,7 +860,8 @@ class ColorizeService:
                 "bulk_backlog": self.lock.bulk_backlog(),
                 "shed_429": self.shed_429,
                 "boot_stages": self.boot_stages,
-                "mesh": None}
+                "mesh": (None if self.mesh is None
+                         else dict(self.mesh.shape))}
 
     def release_device(self) -> None:
         """Leave the card idle and hand back what PyTorch caches on it:
@@ -1322,7 +1353,8 @@ def main(argv=None):
     p.add_argument("--load_size", type=int, default=256)
     p.add_argument("--pytorch_maskcent", action="store_true")
     p.add_argument("--mesh", action="store_true",
-                   help="not available in the port (refused)")
+                   help="split /colorize_batch and the auto-batcher over "
+                        "every local card (when more than one is visible)")
     p.add_argument("--dtype", type=str, default="bfloat16",
                    help="serving precision (default bfloat16: the convs "
                         "on the tensor cores; pass float32 for parity "
@@ -1356,9 +1388,6 @@ def main(argv=None):
                         "VmRSS grows this much beyond its post-warmup "
                         "baseline")
     args = p.parse_args(argv)
-    if args.mesh:
-        p.error("--mesh is not available in the PyTorch/CUDA port: the "
-                "sharded batch forms wait for ROADMAP item 14c")
     from ..config import bundled_weights
     boot_t0 = time.time()
     boot_stages: dict = {}
@@ -1388,7 +1417,8 @@ def main(argv=None):
         maskcent=args.pytorch_maskcent, dtype=args.dtype,
         auto_batch=args.auto_batch, glob_weights=args.glob_weights,
         student_weights=args.student_weights,
-        max_bulk_backlog=args.max_bulk_backlog, device=args.device)
+        max_bulk_backlog=args.max_bulk_backlog, device=args.device,
+        use_mesh=args.mesh)
     boot_stages["service_built_s"] = round(time.time() - boot_t0, 2)
     gen0 = os.environ.get("IDEEPCOLOR_RECYCLE_GEN", "0") == "0"
     if args.warmup and gen0:

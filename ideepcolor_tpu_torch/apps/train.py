@@ -1,15 +1,21 @@
 """Training CLI: user-guided colorization on an image folder, on the card.
 
-Counterpart of ``ideepcolor_tpu/apps/train.py`` on one device: the data
-(a device-resident corpus augmented on the card, or host-decoded batches) ->
-simulated hints -> train step (or a distillation step against a frozen
-teacher) -> train-state files -> optionally a params-only ``.npz`` that
-both packages' loaders read (torch layout).
+Counterpart of ``ideepcolor_tpu/apps/train.py``: the data (a
+device-resident corpus augmented on the card, or host-decoded batches) ->
+simulated hints -> the sharded train step (or distillation step against a
+frozen teacher) on a mesh -> train-state files -> optionally a params-only
+``.npz`` that both packages' loaders read (torch layout).
+
+As in JAX, the trainer always runs on a (data, model) mesh, one device or
+more: ``--model-parallel`` devices per tensor-parallel group, the data axis
+the most of the rest (``parallel.mesh.local_devices``) that divides
+``--batch``; the mesh is printed. ``--device cpu`` gives a (1, 1) CPU mesh,
+whose step is the single-device step.
 
 ``--steps`` is the total: a resumed run takes the remaining steps, and its
 data generator is seeded with ``1 + start_step`` so that it draws new
 batches. The train state is the port's own file (``train/step.py``), not
-an orbax directory. ``--model-parallel`` above 1 waits for the mesh forms.
+an orbax directory; a sharded run writes it whole.
 
 Run: python -m ideepcolor_tpu_torch.apps.train DATA_DIR [--steps N]
      [--batch N] [--device cpu]
@@ -82,10 +88,6 @@ def _check(ap_args) -> None:
                          "resume continues a full train state (optimizer "
                          "included); init-from starts a fresh run from "
                          "params only")
-    if ap_args.model_parallel > 1:
-        raise SystemExit("--model-parallel is not available in the "
-                         "PyTorch/CUDA port: the sharded train step waits "
-                         "for ROADMAP item 14c")
     if ap_args.export and not ap_args.export.endswith(".npz"):
         raise SystemExit(f"--export {ap_args.export}: the port exports "
                          f"params as .npz only")
@@ -96,6 +98,7 @@ def main(argv=None):
     _check(args)
     from ..device import resolve_device
     from ..models import siggraph
+    from ..parallel import mesh as pmesh
     from ..train import distill
     from ..train import step as tstep
     from ..train.data import ImageFolderLoader
@@ -106,6 +109,14 @@ def main(argv=None):
     cfg = tstep.TrainConfig(lr=args.lr, schedule=args.lr_schedule,
                             warmup_steps=args.warmup_steps,
                             total_steps=args.steps)
+    # fit the data axis to the batch (the batch must split evenly)
+    devs = pmesh.local_devices(dev.type)
+    mp = args.model_parallel
+    n_data = max(1, len(devs) // mp)
+    while args.batch % n_data:
+        n_data -= 1
+    mesh = pmesh.make_mesh(n_data * mp, model_parallel=mp, devices=devs)
+    print(f"mesh: {dict(mesh.shape)}")
     init_sd = (siggraph.load_state_dict_file(args.init_from)
                if args.init_from else None)
     distilling = bool(args.distill_from)
@@ -117,14 +128,16 @@ def main(argv=None):
         sd = (siggraph.init_state_dict(1.0, 0)
               if args.distill_from == "random"
               else siggraph.load_state_dict_file(args.distill_from))
-        teacher = distill.teacher_params(sd, args.teacher_dtype, dev)
+        dstep, shard_state, shard_batch, put_teacher = \
+            distill.make_sharded_distill_step(dcfg, mesh)
+        teacher = put_teacher(distill.teacher_params(sd, args.teacher_dtype,
+                                                     dev))
         print(f"distilling width={args.width} student from "
               f"{args.distill_from} ({args.teacher_dtype} teacher)")
         if args.resume:
             state = distill.load_student_state(args.resume, dcfg, dev)
         else:
             state = distill.init_student(dcfg, init_sd, device=dev)
-        dstep = distill.make_distill_step(dcfg)
         step = lambda st, b, g: dstep(st, teacher, b, g)  # noqa: E731
         log_keys = ("reg", "kl")
     else:
@@ -132,8 +145,10 @@ def main(argv=None):
             state = tstep.load_train_state(args.resume, cfg, dev)
         else:
             state = tstep.init_state(cfg, init_sd, device=dev)
-        step = tstep.make_train_step(cfg)
+        step, shard_state, shard_batch = tstep.make_sharded_train_step(
+            cfg, mesh)
         log_keys = ("reg", "cls")
+    state = shard_state(state)
     if args.resume:
         print(f"resumed at step {state['step']}")
     elif args.init_from:
@@ -167,8 +182,8 @@ def main(argv=None):
     t_log = time.perf_counter()
     try:
         for i in range(remaining):
-            batch = {k: v.to(dev, non_blocking=True)
-                     for k, v in next(loader).items()}
+            batch = shard_batch({k: v.to(dev, non_blocking=True)
+                                 for k, v in next(loader).items()})
             with timer.stage("step"):        # the host's dispatch of a step
                 state, aux = step(state, batch, gen)
             if (i + 1) % args.log_every == 0:
@@ -188,8 +203,9 @@ def main(argv=None):
     finally:
         loader.close()
     if args.export:
-        np.savez(args.export, **{k: v.detach().cpu().numpy()
-                                 for k, v in state["params"].items()})
+        np.savez(args.export, **{
+            k: v.cpu().numpy()
+            for k, v in tstep.full_params(state["params"]).items()})
         print(f"exported params -> {args.export}")
     print(timer.report())
     return 0

@@ -26,6 +26,8 @@ relayout. Details carried over exactly:
   a flat dict of tensors (:func:`train_params`) and returns the singly
   scaled regression output and the raw class logits at H/4; its BatchNorm
   is written out elementwise, so the running statistics are trained too.
+  A trunk conv given as a tuple of out-channel slices runs tensor
+  parallel, each slice on its own device (the sharded train step).
 """
 
 from __future__ import annotations
@@ -317,8 +319,20 @@ def train_params(sd: Mapping[str, torch.Tensor], device=None
 def _conv_train(params, name: str, x: torch.Tensor) -> torch.Tensor:
     """One conv of the flat dict. The weight's type is the compute type
     (the input is cast to it, the output back to the input's type), as in
-    :class:`_Conv2d`, so a bf16 teacher runs through the same code."""
+    :class:`_Conv2d`, so a bf16 teacher runs through the same code.
+
+    Tensor parallelism: where the dict holds a tuple of out-channel slices
+    of the weight and of the bias (``parallel.mesh.TP_PARAMS``, one slice
+    per device of the model axis), each slice's device computes its output
+    channels from a copy of ``x``, and the slices are gathered on ``x``'s
+    device (``.to`` and ``torch.cat`` carry each slice's gradient back to
+    its device)."""
     w, b = params[f"{name}.weight"], params[f"{name}.bias"]
+    if isinstance(w, tuple):
+        return torch.cat([
+            _conv_train({f"{name}.weight": w_k, f"{name}.bias": b_k}, name,
+                        x.to(w_k.device)).to(x.device)
+            for w_k, b_k in zip(w, b)], 1)
     block = name.split(".")[0]
     out_dtype, x = x.dtype, x.to(w.dtype)
     if block in _DECONV_BLOCKS:

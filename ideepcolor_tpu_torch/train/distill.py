@@ -1,6 +1,6 @@
 """Teacher -> student distillation for the reduced-width serving tiers.
 
-Counterpart of ``ideepcolor_tpu/train/distill.py`` (single device). A
+Counterpart of ``ideepcolor_tpu/train/distill.py``. A
 width-multiplied SIGGRAPH student (``models.siggraph.scaled_channels``)
 learns the full-width teacher's singly-scaled regression output and its
 529-bin distribution at H/4 (KL at ``temperature``), under the same
@@ -8,6 +8,9 @@ simulated hints for both. The teacher is frozen: it runs under
 ``torch.no_grad`` on weights cast to ``teacher_dtype`` the way
 ``SIGGRAPHGenerator.cast_weights_`` casts them (bf16 convs, f32
 activations; the JAX package also rounds its bf16 teacher's activations).
+:func:`make_sharded_distill_step` is the step on a ``parallel.mesh.Mesh``,
+data parallel only, as in JAX: teacher and student replicated, the
+student's gradient summed over the batch positions.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import siggraph
+from ..parallel import mesh as pmesh
 from . import hints_sim, losses
 from . import step as tstep
 
@@ -118,6 +122,48 @@ def make_distill_step(cfg: DistillConfig):
         return state, aux
 
     return step
+
+
+def make_sharded_distill_step(cfg: DistillConfig, mesh):
+    """The distillation step on ``mesh``, data parallel over its batch
+    axes. Returns ``(step, shard_state, shard_batch, put_teacher)``:
+    ``shard_state`` puts the student on the mesh's first device (no tensor
+    parallelism), ``put_teacher`` replicates the frozen teacher to every
+    position, ``step(state, teacher, batch, generator=None, hints=None)``
+    as :func:`make_distill_step`'s. Each batch position runs
+    :func:`distill_loss` on its chunk; the loss is the chunks' mean and one
+    backward sums the student's gradient (``train.step``'s machinery). On a
+    (1, 1) mesh this is :func:`make_distill_step`'s step."""
+    tcfg = as_train_config(cfg)
+
+    def shard_state(state):
+        return tstep.shard_train_state(state, tcfg, mesh,
+                                       tensor_parallel=False)
+
+    def shard_batch(batch):
+        return pmesh.shard_batch(batch, mesh)
+
+    def put_teacher(teacher):
+        return {k: pmesh.put(v, pmesh.replicated(mesh))
+                for k, v in teacher.items()}
+
+    def step(state, teacher, batch, generator=None, hints=None):
+        inputs = tstep.shard_inputs(mesh, batch, generator, hints,
+                                    cfg.hint_p_keep)
+
+        def loss_and_aux():
+            results = []
+            for pos, b, h in inputs:
+                with pmesh.device_scope(mesh.devices[pos]):
+                    results.append(distill_loss(
+                        tstep.replicate_params(state["params"], mesh, pos),
+                        {k: tstep.placed_at(v, mesh, pos)
+                         for k, v in teacher.items()}, b, cfg, hints=h))
+            return tstep.mean_over_chunks(results, mesh.devices.flat[0])
+
+        return state, tstep.apply_update(state, tcfg, loss_and_aux)
+
+    return step, shard_state, shard_batch, put_teacher
 
 
 def load_student_state(path: str, cfg: DistillConfig, device=None) -> dict:

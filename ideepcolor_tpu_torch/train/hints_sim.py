@@ -104,13 +104,23 @@ def sample_hints(gt_ab: torch.Tensor, generator: torch.Generator,
     the patch's mean ground truth; with probability ``p_full`` (the
     published recipe's 1%) the whole ground truth instead. ``generator``
     lies on gt_ab's device."""
-    n = gt_ab.shape[0]
-    kw = dict(generator=generator, device=gt_ab.device)
+    return hints_from_draws(
+        gt_ab, *draw_hint_numbers(gt_ab.shape[0], generator, gt_ab.device,
+                                  p_full), p_keep)
+
+
+def draw_hint_numbers(n: int, generator: torch.Generator, device,
+                      p_full: float = 0.01) -> tuple:
+    """The random numbers :func:`sample_hints` draws for ``n`` samples, in
+    its order: (coins, normals, half, full) for :func:`hints_from_draws`.
+    Row i of each belongs to sample i, so the draws for a whole batch can be
+    split with it (the sharded train step draws once for the batch)."""
+    kw = dict(generator=generator, device=device)
     coins = torch.rand((n, MAX_POINTS), **kw)
     normals = torch.randn((n, MAX_POINTS, 2), **kw)
     half = torch.randint(0, PMAX + 1, (n, MAX_POINTS), **kw)
     full = torch.rand((n,), **kw) < p_full if p_full > 0.0 else None
-    return hints_from_draws(gt_ab, coins, normals, half, full, p_keep)
+    return coins, normals, half, full
 
 
 def reveal_fixed_from_normals(gt_ab: torch.Tensor, normals: torch.Tensor,

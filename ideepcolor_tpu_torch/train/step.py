@@ -1,8 +1,7 @@
-"""One training step of the SIGGRAPH net on one device, its optimizer and
-its learning-rate schedule, and the train state's file.
+"""One training step of the SIGGRAPH net on one device or on a mesh, its
+optimizer and its learning-rate schedule, and the train state's file.
 
-Counterpart of ``ideepcolor_tpu/train/step.py`` (the single-device forms;
-``make_sharded_train_step`` waits for the port of the mesh). ``optax.adam(
+Counterpart of ``ideepcolor_tpu/train/step.py``. ``optax.adam(
 lr, b1=0.9, b2=0.99)`` becomes ``torch.optim.Adam(betas=(0.9, 0.99),
 eps=1e-8)``, fused on the card. Its learning rate is set before every
 update from the count of updates made so far, with optax's schedule
@@ -16,6 +15,13 @@ statistics included; so does this one (``models.siggraph.forward_train``).
 ``TrainConfig.precision_name`` is the convs' precision, forward and
 backward: "default" (TF32 on the card, the JAX step's
 ``Precision.DEFAULT``) or "highest" (f32).
+
+:func:`make_sharded_train_step` is the step on a ``parallel.mesh.Mesh``:
+data parallel over its batch axes, tensor parallel on the trunk convs over
+its model axis (``parallel.mesh.TP_PARAMS``). Its state holds each such
+param as a tuple of out-channel slices, one per model-axis device; the
+train-state file holds every param whole, so a sharded run's file loads in
+a single-device run and back.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 from ..device import conv_precision, resolve_device
 from ..models import siggraph
 from ..ops.quantize import make_pts_grid
+from ..parallel import mesh as pmesh
 from . import hints_sim, losses
 
 STATE_FORMAT = "ideepcolor_tpu_torch.train_state.v1"
@@ -197,14 +204,222 @@ def make_train_step(cfg: TrainConfig):
     return train_step
 
 
+# ----- the sharded step: data parallel over the mesh's batch axes, the
+# trunk convs tensor parallel over its model axis, one controller -----
+
+def full_params(params: dict) -> dict[str, torch.Tensor]:
+    """Every param whole and detached: a tensor-parallel param's slices
+    concatenated on its first slice's device."""
+    return {k: (torch.cat([s.detach().to(v[0].device) for s in v])
+                if isinstance(v, tuple) else v.detach())
+            for k, v in params.items()}
+
+
+def _leaves(params: dict) -> dict[str, torch.Tensor]:
+    """The optimizer's tensors in order: a sliced param's slices in model
+    order."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, tuple):
+            out.update({f"{k}#{m}": t for m, t in enumerate(v)})
+        else:
+            out[k] = v
+    return out
+
+
+def _whole_opt_state(params: dict, opt) -> dict:
+    """``opt.state_dict()`` in the layout of a state whose params are
+    whole: the moments of a sliced param concatenated like its slices."""
+    sd = opt.state_dict()
+    state, i = {}, 0
+    for j, v in enumerate(params.values()):
+        n = len(v) if isinstance(v, tuple) else 1
+        parts = [sd["state"][i + m] for m in range(n)
+                 if i + m in sd["state"]]
+        if parts:
+            state[j] = {name: (torch.cat([p[name].to(t.device)
+                                          for p in parts])
+                               if n > 1 and t.dim() else t)
+                        for name, t in parts[0].items()}
+        i += n
+    return {"state": state,
+            "param_groups": [dict(g, params=list(range(len(params))))
+                             for g in sd["param_groups"]]}
+
+
+def _sliced_opt_state(whole: dict, params: dict) -> dict:
+    """The inverse of :func:`_whole_opt_state` for ``params``' slicing."""
+    state, i = {}, 0
+    for j, v in enumerate(params.values()):
+        n = len(v) if isinstance(v, tuple) else 1
+        if j in whole["state"]:
+            sizes = [t.shape[0] for t in v] if n > 1 else None
+            for name, t in whole["state"][j].items():
+                pieces = (torch.split(t, sizes) if n > 1 and t.dim()
+                          else [t] * n)
+                for m in range(n):
+                    state.setdefault(i + m, {})[name] = pieces[m].clone()
+        i += n
+    return {"state": state,
+            "param_groups": [dict(g, params=list(range(i)))
+                             for g in whole["param_groups"]]}
+
+
+def shard_train_state(state: dict, cfg, mesh,
+                      tensor_parallel: bool = True) -> dict:
+    """A train state laid out for ``mesh``: every param a leaf on the
+    mesh's first device, except, with ``tensor_parallel``, the trunk convs
+    (``parallel.mesh.TP_PARAMS``), split on their out channels into one
+    slice per model-axis device at the first data position; Adam's moments
+    follow their params. Where nothing moves, ``state`` itself. The state
+    given is consumed, as JAX donates it: the result may share its
+    tensors."""
+    first = mesh.devices.flat[0]
+    mdevs = [mesh.devices[p] for p in pmesh.model_positions(
+        mesh, pmesh.batch_positions(mesh)[0])]
+    new = {}
+    for k, v in full_params(state["params"]).items():
+        old = state["params"][k]
+        if tensor_parallel and len(mdevs) > 1 and k in pmesh.TP_PARAMS:
+            if v.shape[0] % len(mdevs):
+                raise ValueError(f"{k}: {v.shape[0]} out channels do not "
+                                 f"split over {len(mdevs)} model devices")
+            new[k] = tuple(t.to(d, copy=True).requires_grad_(True)
+                           for t, d in zip(v.chunk(len(mdevs)), mdevs))
+        elif isinstance(old, torch.Tensor) and old.device == first:
+            new[k] = old
+        else:
+            pmesh.check_placement(v, mesh)
+            new[k] = v.to(first, copy=True).requires_grad_(True)
+    if all(new[k] is state["params"][k] for k in new):
+        return state
+    opt = make_optimizer(cfg, _leaves(new))
+    opt.load_state_dict(_sliced_opt_state(
+        _whole_opt_state(state["params"], state["opt"]), new))
+    return {"params": new, "opt": opt, "step": state["step"]}
+
+
+def replicate_params(params: dict, mesh, pos) -> dict:
+    """The params as mesh position ``pos`` computes with them:
+    differentiable copies on its devices (a slice on its model-axis
+    device), so one backward sums every position's gradient into the
+    master params. Where the device repeats, the master itself."""
+    dev = mesh.devices[pos]
+    mdevs = [mesh.devices[p] for p in pmesh.model_positions(mesh, pos)]
+    return {k: (tuple(t.to(d) for t, d in zip(v, mdevs))
+                if isinstance(v, tuple) else v.to(dev))
+            for k, v in params.items()}
+
+
+def placed_at(x, mesh, pos) -> torch.Tensor:
+    """Position ``pos``'s copy of a replicated input."""
+    if isinstance(x, pmesh.ShardedTensor):
+        return x.piece(pos)
+    pmesh.check_placement(x, mesh)
+    return x.to(mesh.devices[pos])
+
+
+def _chunk(x, mesh, positions) -> list[torch.Tensor]:
+    """The batch chunk of each position: a placed batch's pieces, or a
+    whole tensor split into equal chunks."""
+    if isinstance(x, pmesh.ShardedTensor):
+        return [x.piece(p) for p in positions]
+    pmesh.check_placement(x, mesh)
+    if x.shape[0] % len(positions):
+        raise ValueError(f"a batch of {x.shape[0]} does not split into "
+                         f"{len(positions)} equal chunks")
+    return [c.to(mesh.devices[p]) for c, p in
+            zip(x.split(x.shape[0] // len(positions)), positions)]
+
+
+def shard_inputs(mesh, batch: dict, generator, hints, p_keep: float
+                 ) -> list[tuple]:
+    """Per batch position of ``mesh``: (position, batch chunk, hints). The
+    hints are ``hints`` split like the batch or, without them, drawn ONCE
+    for the whole batch from ``generator`` on the mesh's first device
+    (``hints_sim.draw_hint_numbers``) and computed per chunk, so a sharded
+    step sees the single-device step's hints."""
+    positions = pmesh.batch_positions(mesh)
+    chunks = {k: _chunk(v, mesh, positions) for k, v in batch.items()}
+    if hints is not None:
+        hint_chunks = [_chunk(h, mesh, positions) for h in hints]
+    else:
+        n = sum(c.shape[0] for c in chunks["ab"])
+        draws = hints_sim.draw_hint_numbers(n, generator,
+                                            mesh.devices.flat[0])
+        draw_chunks = [[None] * len(positions) if d is None else
+                       _chunk(d, mesh, positions) for d in draws]
+        hint_chunks = list(zip(*[
+            hints_sim.hints_from_draws(ab, *(d[j] for d in draw_chunks),
+                                       p_keep=p_keep)
+            for j, ab in enumerate(chunks["ab"])]))
+    return [(p, {k: c[j] for k, c in chunks.items()},
+             tuple(h[j] for h in hint_chunks))
+            for j, p in enumerate(positions)]
+
+
+def mean_over_chunks(results: list, device) -> tuple:
+    """(total, aux) of equal chunks: the mean of each on ``device``; one
+    chunk's own values where there is one."""
+    if len(results) == 1:
+        return results[0]
+    mean = lambda ts: torch.stack([t.to(device) for t in ts]).mean()  # noqa
+    return (mean([r[0] for r in results]),
+            {k: mean([r[1][k] for r in results]) for k in results[0][1]})
+
+
+def make_sharded_train_step(cfg: TrainConfig, mesh):
+    """The train step on ``mesh``. Returns ``(step, shard_state,
+    shard_batch)``: ``shard_state(state)`` lays a state out for the mesh
+    (:func:`shard_train_state`), ``shard_batch(batch)`` places a batch on
+    its batch axes, ``step(state, batch, generator=None, hints=None) ->
+    (state, aux)`` as :func:`make_train_step`'s.
+
+    Each (dcn, data) position runs ``loss_fn`` on its chunk with the params
+    replicated to it (:func:`replicate_params`); the loss is the mean of
+    the chunks' (equal chunks); ONE backward sums the replicas' gradients
+    into the master params, then one Adam update at the schedule's lr. On
+    a (1, 1) mesh this is :func:`make_train_step`'s step."""
+    grids: dict = {}
+
+    def centers_on(dev):
+        if dev not in grids:
+            grids[dev] = pts_grid(dev)
+        return grids[dev]
+
+    def shard_state(state):
+        return shard_train_state(state, cfg, mesh)
+
+    def shard_batch(batch):
+        return pmesh.shard_batch(batch, mesh)
+
+    def step(state, batch, generator=None, hints=None):
+        inputs = shard_inputs(mesh, batch, generator, hints,
+                              cfg.hint_p_keep)
+
+        def loss_and_aux():
+            results = []
+            for pos, b, h in inputs:
+                dev = mesh.devices[pos]
+                with pmesh.device_scope(dev):
+                    results.append(loss_fn(
+                        replicate_params(state["params"], mesh, pos), b,
+                        cfg, centers_on(dev), hints=h))
+            return mean_over_chunks(results, mesh.devices.flat[0])
+
+        return state, apply_update(state, cfg, loss_and_aux)
+
+    return step, shard_state, shard_batch
+
+
 # ----- the train state's file: params, Adam's moments and counts, and the
-# count of updates; torch.save, read back with weights_only=True -----
+# count of updates; torch.save, read back with weights_only=True. A sharded
+# state is written whole -----
 
 def save_train_state(path: str, state: dict) -> None:
     torch.save({"format": STATE_FORMAT,
-                "params": {k: v.detach() for k, v in
-                           state["params"].items()},
-                "opt": state["opt"].state_dict(),
+                "params": full_params(state["params"]),
+                "opt": _whole_opt_state(state["params"], state["opt"]),
                 "step": int(state["step"])}, path)
 
 

@@ -39,6 +39,7 @@ from ideepcolor_tpu_torch.ops import colorspace as tcs
 from ideepcolor_tpu_torch.ops import kmeans as tkm
 from ideepcolor_tpu_torch.ops.hints import MAX_HINTS
 from ideepcolor_tpu_torch.ops.quantize import make_pts_grid
+from ideepcolor_tpu_torch.parallel import mesh as pmesh
 
 from _torch_caffe import jax_params_from_state_dict, smooth_image
 
@@ -225,19 +226,27 @@ def test_stream_window_matches_jax_and_the_stream_step(weights):
 
 def test_no_mesh_argument_and_entry_points_default_to_the_card(
         weights, monkeypatch):
-    """The sharded forms are not carried, so no function has a ``mesh``
-    argument to ignore; the numpy entry points run on the card unless asked
-    for the CPU."""
+    """The five public forms take ``mesh`` where the JAX forms do (the
+    one-program forms under them do not, as in JAX), and the sharded
+    program factories exist; the numpy entry points run on the card unless
+    asked for the CPU, and so does the default mesh (``make_mesh()``)."""
     _, sd, _ = weights
-    for fn in (tb.colorize_batch, tb.colorize_batch_table,
-               tb.stream_window_u8, tb.batch_forward_frames,
-               tb.batch_forward_frames_table, tb.batch_stream_window_u8,
-               tb.batch_suggest_table, tb.suggest_batch_table,
-               tb.batch_forward_frames_global, tb.colorize_batch_global):
+    jax_public = (jb.colorize_batch, jb.colorize_batch_table,
+                  jb.stream_window_u8, jb.suggest_batch_table,
+                  jb.colorize_batch_global)
+    for jfn in jax_public:
+        fn = getattr(tb, jfn.__name__)
+        params = list(inspect.signature(fn).parameters)
+        jparams = list(inspect.signature(jfn).parameters)
+        assert "mesh" in params
+        assert params.index("mesh") == jparams.index("mesh"), jfn.__name__
+    for fn in (tb.batch_forward_frames, tb.batch_forward_frames_table,
+               tb.batch_stream_window_u8, tb.batch_suggest_table,
+               tb.batch_forward_frames_global):
         assert "mesh" not in inspect.signature(fn).parameters
     for name in ("make_sharded_batch_forward", "make_sharded_table_forward",
                  "mesh_batch_align"):
-        assert not hasattr(tb, name)
+        assert callable(getattr(tb, name))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     imgs = np.zeros((1, 32, 32, 3), np.uint8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -250,6 +259,8 @@ def test_no_mesh_argument_and_entry_points_default_to_the_card(
                                np.zeros((1, MAX_HINTS, 2)), [0], [3], [3])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tb.colorize_batch_global({}, imgs, np.zeros((1, 314)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pmesh.make_mesh()
 
 
 @pytest.fixture(scope="module")

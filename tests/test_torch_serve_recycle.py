@@ -222,10 +222,31 @@ def test_boot_stages_surface_in_health_and_release_is_a_noop_on_cpu():
     assert sid in svc._sessions
 
 
-def test_mesh_flag_is_refused(capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--mesh", "--device", "cpu"])
-    assert "14c" in capsys.readouterr().err
+def test_mesh_flag_is_refused(monkeypatch):
+    """``--mesh`` is no longer refused: main hands it to the service as
+    ``use_mesh`` (the service is stopped there; the mesh itself is held in
+    tests/test_torch_batch_mesh.py)."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def service(**kw):
+        seen.update(kw)
+        raise Stop
+
+    class Listener:
+        server_address = ("127.0.0.1", 0)
+
+        def serve_forever(self):
+            pass
+
+    monkeypatch.setattr(serve, "make_listening_server",
+                        lambda port, host: Listener())
+    monkeypatch.setattr(serve, "ColorizeService", service)
+    with pytest.raises(Stop):
+        serve.main(["--mesh", "--device", "cpu", "--port", "0"])
+    assert seen["use_mesh"] is True and seen["device"] == "cpu"
 
 
 def _wait_health(port, timeout=120, want_gen=None):
