@@ -254,11 +254,29 @@ or more each; any failure exits non-zero:
    N=16 against the unsharded call and a train step on each mesh (host
    clock; on one card that is the cost of the split, the copies and the
    gather, not scaling), the phase's peak memory;
-17. one JSON line listing each kernel entry with its launches on the nine
-   paths, its error against the plain version, its time, the plain
-   version's, its bound and what sets it, and the shape and plane layout
-   those numbers were measured at;
-18. last line: {"ok": true, "device": {...}}.
+17. the mesh across processes, the tenth path: two ranks spawned into one
+   gloo group over a file store (NCCL refuses two ranks on one card),
+   each giving the card four times (``devices=[card] * 4``). On the
+   (2, 2, 2) hybrid mesh and on make_mesh(8, 2) across the ranks, phase
+   16's f32 train step of the teacher and w0.5 distill step (same batch,
+   weights and generator seed, two steps each) under deterministic cuDNN:
+   the ranks' params byte for byte equal after every step; rank 0's state
+   file, loaded on one device, holds rank 0's params; against this
+   process's meshes of the same shapes over the card x8, the loss within
+   MP_LOSS_BOUND and the params within the TRAIN_* bounds (the all-reduce
+   adds the ranks' sums in another order). In both ranks
+   colorize_batch_table(mesh=) and a ColorizeService start raise before
+   any work (no kernel launches), and apps/train.main runs MP_APP_STEPS
+   steps on phase 13's corpus: rank 0 alone prints and writes each
+   checkpoint and the .pth export, once. The parent joins the ranks within
+   MP_DEADLINE_S; a rank that fails or outlives it fails the run. Printed:
+   the train step's host ms in one process and in each rank, and the
+   gradient all-reduce's alone. No kernel of K1 or K2 runs here;
+18. one JSON line listing each kernel entry with its launches on the nine
+   paths that launch kernels, its error against the plain version, its
+   time, the plain version's, its bound and what sets it, and the shape
+   and plane layout those numbers were measured at;
+19. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -393,10 +411,30 @@ MESH_TIMED = 5
 # the single-device forms run chunk by chunk, as the mesh splits the batch,
 # under deterministic kernels the frames and palettes are held equal
 MESH_FRAME_BOUND = (1, 1e-2)
+# phase 17, the mesh across processes: two spawned ranks in one gloo group
+# on the one card (NCCL refuses two ranks on one device), the parent's join
+# deadline, the loss bound against one process (the chunks' losses are
+# averaged in another order), and the app's steps and batch
+MP_WORLD = 2
+MP_DEADLINE_S = 600
+MP_LOSS_BOUND = 1e-6
+MP_APP_STEPS, MP_APP_BATCH = 4, 4
+MP_MESHES = ("(2,2,2)", "(4,2)")
 
 
 def die(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+def params_digest(params: dict) -> str:
+    """sha256 of every tensor's bytes, in key order: equal digests are
+    params equal byte for byte."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(k.encode())
+        h.update(params[k].detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
 
 
 def device_ms(fn, reps: int = 20, samples: int = 50) -> float:
@@ -460,6 +498,37 @@ def image(seed: int, H: int, W: int) -> np.ndarray:
                      for c in range(3)], -1)
     return np.clip(127.5 + 100 * base + rng.normal(0, 12, (H, W, 3)),
                    0, 255).astype(np.uint8)
+
+
+def write_corpus(root: str) -> tuple[str, str]:
+    """Phase 13's seeded corpus under ``root``: 16 training and 8 held-out
+    PNG images of 288-400 px (a quarter of them square). Returns the two
+    folders."""
+    from ideepcolor_tpu_torch.utils.imageio import encode_png
+    rng = np.random.default_rng(13)
+    for name, n in (("train", 16), ("held", 8)):
+        os.makedirs(os.path.join(root, name))
+        for i in range(n):
+            H, W = (int(v) for v in rng.integers(288, 401, 2))
+            W = H if i % 4 == 0 else W
+            with open(os.path.join(root, name, f"{i:02d}.png"), "wb") as f:
+                f.write(encode_png(image(1300 + 50 * (name == "held") + i,
+                                         H, W)))
+    return os.path.join(root, "train"), os.path.join(root, "held")
+
+
+def mesh_train_batch(dev):
+    """Phases 16's and 17's train batch on ``dev``: MESH_TRAIN_BATCH seeded
+    images at MESH_TRAIN_SIZE, as {'l': (N,1,H,W), 'ab': (N,2,H,W)}."""
+    import torch
+    from ideepcolor_tpu_torch.ops.colorspace import rgb_to_lab
+    from ideepcolor_tpu_torch.ops.resize import resize_u8_pil_bilinear
+    small = [resize_u8_pil_bilinear(image(1700 + i, 300, 340),
+                                    (MESH_TRAIN_SIZE, MESH_TRAIN_SIZE))
+             for i in range(MESH_TRAIN_BATCH)]
+    lab = rgb_to_lab(torch.from_numpy(np.stack(small)).float() / 255.0)
+    return {"l": lab[..., :1].permute(0, 3, 1, 2).contiguous().to(dev),
+            "ab": lab[..., 1:].permute(0, 3, 1, 2).contiguous().to(dev)}
 
 
 def session_hints(n: int, seed: int = 7) -> list[dict]:
@@ -1079,7 +1148,6 @@ def train_phase(entries, dev) -> dict:
     from ideepcolor_tpu_torch.train import device_data as DD
     from ideepcolor_tpu_torch.train import hints_sim as HS
     from ideepcolor_tpu_torch.train import step as TS
-    from ideepcolor_tpu_torch.utils.imageio import encode_png
 
     on_card = dev.type == "cuda"
 
@@ -1092,19 +1160,7 @@ def train_phase(entries, dev) -> dict:
     t_phase = time.perf_counter()
     tmp = tempfile.TemporaryDirectory()
     # a. the corpus: 16 training and 8 held-out seeded images, PNG
-    rng = np.random.default_rng(13)
-    dirs = {"train": 16, "held": 8}
-    for name, n in dirs.items():
-        os.makedirs(os.path.join(tmp.name, name))
-        for i in range(n):
-            H, W = (int(v) for v in rng.integers(288, 401, 2))
-            W = H if i % 4 == 0 else W
-            with open(os.path.join(tmp.name, name, f"{i:02d}.png"),
-                      "wb") as f:
-                f.write(encode_png(image(1300 + 50 * (name == "held") + i,
-                                         H, W)))
-    corpus = os.path.join(tmp.name, "train")
-    held = os.path.join(tmp.name, "held")
+    corpus, held = write_corpus(tmp.name)
     teacher_sd = siggraph.load_state_dict_file(WEIGHTS)
 
     # b. one f32 step of the teacher, batch 2 at 64x64, on dev and the CPU
@@ -2263,11 +2319,9 @@ def mesh_phase(entries, dev, global_sd) -> dict:
     from ideepcolor_tpu_torch.engine import batch as B
     from ideepcolor_tpu_torch.models import caffe_net, siggraph
     from ideepcolor_tpu_torch.ops import hints
-    from ideepcolor_tpu_torch.ops.colorspace import rgb_to_lab
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     from ideepcolor_tpu_torch.ops.quantize import make_pts_grid
-    from ideepcolor_tpu_torch.ops.resize import resize_u8_pil_bilinear
     from ideepcolor_tpu_torch.parallel import mesh as pmesh
     from ideepcolor_tpu_torch.train import distill as TD
     from ideepcolor_tpu_torch.train import step as TS
@@ -2386,12 +2440,7 @@ def mesh_phase(entries, dev, global_sd) -> dict:
                 for form, outs in parts.items()}
 
     # the train and distill steps: 8 seeded images at 64x64, f32
-    small = [resize_u8_pil_bilinear(image(1700 + i, 300, 340),
-                                    (MESH_TRAIN_SIZE, MESH_TRAIN_SIZE))
-             for i in range(MESH_TRAIN_BATCH)]
-    lab = rgb_to_lab(torch.from_numpy(np.stack(small)).float() / 255.0)
-    batch = {"l": lab[..., :1].permute(0, 3, 1, 2).contiguous().to(dev),
-             "ab": lab[..., 1:].permute(0, 3, 1, 2).contiguous().to(dev)}
+    batch = mesh_train_batch(dev)
     cfg = TS.TrainConfig(precision_name="highest")
     dcfg = TD.DistillConfig(width=0.5, precision_name="highest")
     student_sd = siggraph.load_state_dict_file("weights/student_w05.npz")
@@ -2648,6 +2697,356 @@ def mesh_phase(entries, dev, global_sd) -> dict:
           f"{peak:.3f} GiB allocated; launches on the mesh path "
           + ", ".join(f"{k.name} {launches[k.name]}" for k in entries))
     return launches
+
+
+def mesh_steps(kind: str, mesh, dev, weights: dict):
+    """Phase 17's sharded step of ``kind`` ("train": the teacher's f32
+    step; "distill": the w0.5 student's) on ``mesh`` -> (state, run), where
+    ``run(state, seed)`` takes one step on phase 16's batch with a
+    generator seeded ``seed`` on ``dev`` and returns (state, aux)."""
+    import torch
+    from ideepcolor_tpu_torch.train import distill as TD
+    from ideepcolor_tpu_torch.train import step as TS
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    batch = weights["batch"]
+    if kind == "train":
+        cfg = TS.TrainConfig(precision_name="highest")
+        step, shard_state, shard_batch = TS.make_sharded_train_step(cfg,
+                                                                    mesh)
+        state = shard_state(TS.init_state(cfg, weights["teacher"],
+                                          device=dev))
+        return state, lambda st, seed: step(st, shard_batch(batch),
+                                            gen(seed))
+    dcfg = TD.DistillConfig(width=0.5, precision_name="highest")
+    step, shard_state, shard_batch, put_teacher = \
+        TD.make_sharded_distill_step(dcfg, mesh)
+    state = shard_state(TD.init_student(dcfg, weights["student"],
+                                        device=dev))
+    teacher = put_teacher(TD.teacher_params(weights["teacher"], "float32",
+                                            dev))
+    return state, lambda st, seed: step(st, teacher, shard_batch(batch),
+                                        gen(seed))
+
+
+def mesh_step_weights(dev) -> dict:
+    from ideepcolor_tpu_torch.models import siggraph
+    return {"batch": mesh_train_batch(dev),
+            "teacher": siggraph.load_state_dict_file(WEIGHTS),
+            "student": siggraph.load_state_dict_file(
+                "weights/student_w05.npz")}
+
+
+def mp_meshes(devs) -> dict:
+    """Phase 17's meshes over ``devs`` (per rank, or all of one process):
+    the hybrid (2, 2, 2) mesh and make_mesh(8, 2)."""
+    from ideepcolor_tpu_torch.parallel import mesh as pmesh
+    return {"(2,2,2)": pmesh.make_hybrid_mesh(2, 2, devices=devs),
+            "(4,2)": pmesh.make_mesh(8, 2, devices=devs)}
+
+
+def mesh_rank(rank: int, work: str, dev_name: str, corpus: str) -> None:
+    """Phase 17's rank ``rank`` of MP_WORLD, spawned by
+    :func:`process_mesh_phase`: joins a gloo group over a file store in
+    ``work`` and writes what it saw to ``work/rank<rank>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    # the loopback: the card's machine has no other network
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dev = torch.device(dev_name)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work, "store"),
+        rank=rank, world_size=MP_WORLD,
+        timeout=datetime.timedelta(seconds=MP_DEADLINE_S))
+    try:
+        out = mesh_rank_body(rank, work, dev, corpus)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+
+
+def mesh_rank_body(rank: int, work: str, dev, corpus: str) -> dict:
+    import contextlib
+    import io
+
+    import torch
+    from ideepcolor_tpu_torch.apps import serve
+    from ideepcolor_tpu_torch.apps import train as train_cli
+    from ideepcolor_tpu_torch.engine import batch as B
+    from ideepcolor_tpu_torch.models import siggraph
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+    from ideepcolor_tpu_torch.parallel import mesh as pmesh
+    from ideepcolor_tpu_torch.train import step as TS
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    torch.backends.cudnn.deterministic = True
+    meshes = mp_meshes([dev] * 4)
+    out: dict = {"meshes": {name: (dict(m.shape), m.ranks.tolist(),
+                                   m.local_positions())
+                            for name, m in meshes.items()}}
+    weights = mesh_step_weights(dev)
+    for name, m in meshes.items():
+        for kind in ("train", "distill"):
+            state, run = mesh_steps(kind, m, dev, weights)
+            res: dict = {"loss": [], "digests": []}
+            for seed in (7, 8):
+                state, aux = run(state, seed)
+                res["loss"].append(float(aux["loss"]))
+                res["digests"].append(params_digest(
+                    TS.full_params(state["params"])))
+                if seed == 7:
+                    TS.save_train_state(
+                        os.path.join(work, f"{kind}_{name}.pt"), state)
+            if kind == "train" and name == "(2,2,2)":
+                res["step_ms"] = []
+                for _ in range(MESH_TIMED):
+                    sync()
+                    t0 = time.perf_counter()
+                    state, _ = run(state, 9)
+                    sync()
+                    res["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                grads = [p.grad for g in state["opt"].param_groups
+                         for p in g["params"] if p.grad is not None]
+                res["grad_values"] = sum(g.numel() for g in grads)
+                res["all_reduce_ms"] = []
+                for _ in range(MESH_TIMED):
+                    sync()
+                    t0 = time.perf_counter()
+                    TS.mean_over_processes(grads)
+                    sync()
+                    res["all_reduce_ms"].append(
+                        (time.perf_counter() - t0) * 1e3)
+            out[kind, name] = res
+            del state, run
+
+    # the refusals, before any work: no kernel may have launched
+    hm = meshes["(2,2,2)"]
+    net = siggraph.as_module(weights["teacher"], dev)
+    imgs = np.stack([image(1600 + i, S, S) for i in range(4)])
+    table = np.zeros((4, 256, 4), np.int32), np.zeros((4, 256, 2),
+                                                      np.float32)
+    out["refusals"] = {}
+    for name, call in (
+            ("colorize_batch_table", lambda: B.colorize_batch_table(
+                net, imgs, *table, np.zeros(4, np.int32), mesh=hm)),
+            ("ColorizeService", lambda: serve.ColorizeService(
+                weights=WEIGHTS, dtype="float32", device=dev.type))):
+        try:
+            call()
+            out["refusals"][name] = None
+        except (ValueError, RuntimeError) as e:
+            out["refusals"][name] = str(e)
+    out["launches"] = sum(k.launches for k in (
+        k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
+        k2.KERNEL_BATCH))
+
+    # the train app in both ranks, on the card given twice per rank: a
+    # (4, 1) mesh across the ranks; each file it saves is counted
+    saved = []
+    real_save, hook = torch.save, pmesh.local_devices
+
+    def save(obj, f, *a, **kw):
+        saved.append(os.path.basename(f))
+        return real_save(obj, f, *a, **kw)
+    torch.save = save
+    pmesh.local_devices = lambda device_type="cuda": [dev] * 2
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(
+                [corpus, "--steps", str(MP_APP_STEPS), "--batch",
+                 str(MP_APP_BATCH), "--size", str(MESH_TRAIN_SIZE), "--ckpt",
+                 os.path.join(work, "app_ck"), "--ckpt-every", "2",
+                 "--log-every", "2", "--init-from", WEIGHTS, "--export",
+                 os.path.join(work, "app.pth")]
+                + ([] if dev.type == "cuda" else ["--device", "cpu"]))
+    finally:
+        torch.save, pmesh.local_devices = real_save, hook
+    out["app"] = {"rc": rc, "stdout": buf.getvalue(), "saved": saved,
+                  "s": time.perf_counter() - t0}
+    return out
+
+
+def process_mesh_phase(dev) -> None:
+    """Phase 17: the mesh across two processes on ``dev`` (the card;
+    "cpu" rehearses the phase). Two ranks spawned into one gloo group run
+    the (2, 2, 2) hybrid mesh and make_mesh(8, 2), each giving its device
+    four times, against this process's meshes of the same shapes. It
+    launches no kernel of its own: training never did."""
+    import torch
+    import torch.multiprocessing as mp
+    from ideepcolor_tpu_torch.models import siggraph
+    from ideepcolor_tpu_torch.train import distill as TD
+    from ideepcolor_tpu_torch.train import step as TS
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    os.makedirs(os.path.join(tmp.name, "corpus"))
+    corpus, _ = write_corpus(os.path.join(tmp.name, "corpus"))
+    work = os.path.join(tmp.name, "work")
+    os.makedirs(work)
+    ctx = mp.start_processes(mesh_rank, args=(work, str(dev), corpus),
+                             nprocs=MP_WORLD, join=False,
+                             start_method="spawn")
+    end = time.monotonic() + MP_DEADLINE_S
+    try:
+        while not ctx.join(timeout=max(end - time.monotonic(), 0.1)):
+            if time.monotonic() >= end:
+                die(f"phase 17: the ranks still ran after {MP_DEADLINE_S} "
+                    f"s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        die(f"phase 17: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    ranks_s = time.perf_counter() - t_phase
+    outs = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                       weights_only=False) for r in range(MP_WORLD)]
+
+    # the meshes: rank r drives the dcn = r slab of the hybrid mesh and the
+    # rows of its devices, rank-major, of make_mesh(8, 2)
+    want_ranks = {"(2,2,2)": [[[0, 0], [0, 0]], [[1, 1], [1, 1]]],
+                  "(4,2)": [[0, 0], [0, 0], [1, 1], [1, 1]]}
+    for r, o in enumerate(outs):
+        for name in MP_MESHES:
+            shape, ranks, local = o["meshes"][name]
+            grid = np.array(want_ranks[name])
+            if ranks != want_ranks[name] or list(shape.values()) != list(
+                    grid.shape) or local != [p for p in np.ndindex(
+                        grid.shape) if grid[p] == r]:
+                die(f"phase 17: rank {r}'s {name} mesh: {shape}, ranks "
+                    f"{ranks}, local {local}")
+
+    # the same steps in this process on meshes of the card x8, under the
+    # same deterministic kernels
+    single = mp_meshes([dev] * 8)
+    weights = mesh_step_weights(dev)
+    refs, one_ms = {}, []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name in MP_MESHES:
+            for kind in ("train", "distill"):
+                state, run = mesh_steps(kind, single[name], dev, weights)
+                state, aux = run(state, 7)
+                refs[kind, name] = (float(aux["loss"]), {
+                    k: v.to("cpu", copy=True) for k, v in
+                    TS.full_params(state["params"]).items()})
+                if kind == "train" and name == "(2,2,2)":
+                    for _ in range(MESH_TIMED):
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, _ = run(state, 9)
+                        if dev.type == "cuda":
+                            torch.cuda.synchronize()
+                        one_ms.append((time.perf_counter() - t0) * 1e3)
+                del state, run
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    lrs = {"train": TS.TrainConfig().lr, "distill": TD.DistillConfig().lr}
+    for name in MP_MESHES:
+        for kind in ("train", "distill"):
+            a, b = outs[0][kind, name], outs[1][kind, name]
+            if a["digests"] != b["digests"] or a["loss"] != b["loss"]:
+                die(f"phase 17: the ranks' {kind} params or losses differ on "
+                    f"the {name} mesh")
+            path = os.path.join(work, f"{kind}_{name}.pt")
+            loaded = (TS.load_train_state(path, TS.TrainConfig(), dev)
+                      if kind == "train" else TD.load_student_state(
+                          path, TD.DistillConfig(width=0.5), dev))
+            if params_digest(loaded["params"]) != a["digests"][0]:
+                die(f"phase 17: rank 0's {kind} state file on the {name} "
+                    f"mesh does not load with rank 0's params")
+            ref_loss, ref = refs[kind, name]
+            loss_rel = abs(a["loss"][0] - ref_loss) / abs(ref_loss)
+            dw = torch.cat([(loaded["params"][k].detach().cpu() - ref[k])
+                            .abs().flatten() for k in ref]) / lrs[kind]
+            dw_max, share = float(dw.max()), float((dw > 1e-3).double()
+                                                   .mean())
+            print(f"{kind} step on the {name} mesh across {MP_WORLD} "
+                  f"processes against one process (deterministic kernels, "
+                  f"same weights and generator): the ranks' params byte "
+                  f"for byte equal after both steps; loss relative "
+                  f"{loss_rel:.2e} (bound {MP_LOSS_BOUND}); max |dw| "
+                  f"{dw_max:.4f} lr (bound {TRAIN_DW_BOUND}), {share:.3e} "
+                  f"of the weights more than 1e-3 lr apart (bound "
+                  f"{TRAIN_DW_SHARE}); rank 0's state file loads on one "
+                  f"device with rank 0's params")
+            if loss_rel > MP_LOSS_BOUND or dw_max > TRAIN_DW_BOUND \
+                    or share > TRAIN_DW_SHARE:
+                die(f"phase 17: the {kind} step on the {name} mesh across "
+                    f"processes is past the bounds")
+
+    for r, o in enumerate(outs):
+        ref = o["refusals"]
+        if not (ref["colorize_batch_table"] or "").count("not addressable") \
+                or "one process" not in (ref["ColorizeService"] or ""):
+            die(f"phase 17: rank {r} did not refuse: {ref}")
+        if o["launches"]:
+            die(f"phase 17: rank {r} launched {o['launches']} kernels")
+    print(f"refusals in both ranks, before any work (0 kernel launches): "
+          f"colorize_batch_table(mesh=(2,2,2)): "
+          f"{outs[0]['refusals']['colorize_batch_table'][:80]}...; "
+          f"ColorizeService: {outs[0]['refusals']['ColorizeService']}")
+
+    apps = [o["app"] for o in outs]
+    files = sorted(f for f in os.listdir(work) if f.startswith("app"))
+    if [a["rc"] for a in apps] != [0] * MP_WORLD or apps[1]["stdout"] \
+            or apps[1]["saved"] or apps[0]["saved"] != [
+                "app_ck_2.pt", "app_ck_4.pt", "app.pth"] \
+            or files != ["app.pth", "app_ck_2.pt", "app_ck_4.pt"] \
+            or f"step {MP_APP_STEPS}: loss=" not in apps[0]["stdout"]:
+        die(f"phase 17: apps/train in two ranks: {apps}, files {files}")
+    if TS.load_train_state(os.path.join(work, "app_ck_4.pt"),
+                           TS.TrainConfig(), dev)["step"] != MP_APP_STEPS:
+        die("phase 17: the app's last state does not load at its step")
+    siggraph.SIGGRAPHGenerator().load_state_dict(torch.load(
+        os.path.join(work, "app.pth"), weights_only=True), strict=True)
+    mesh_line = next(line for line in apps[0]["stdout"].splitlines()
+                     if line.startswith("mesh:"))
+    print(f"apps/train in {MP_WORLD} ranks ({mesh_line}; --batch "
+          f"{MP_APP_BATCH} --size {MESH_TRAIN_SIZE}, {MP_APP_STEPS} steps, "
+          f"--ckpt-every 2, --export .pth): {apps[0]['s']:.1f} s; rank 0 "
+          f"alone printed and saved {', '.join(apps[0]['saved'])}, once "
+          f"each; the last state loads on one device, the .pth strictly")
+
+    smi = dev.type
+    if dev.type == "cuda":
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines()[0]
+    timed = [o["train", "(2,2,2)"] for o in outs]
+    print(f"mesh across processes, times on one card ({smi}; host clock, "
+          f"median of {MESH_TIMED}; two ranks share the card, so this is "
+          f"the cost of the split and the gloo all-reduce, not scaling): "
+          f"the teacher's f32 train step (batch {MESH_TRAIN_BATCH} at "
+          f"{MESH_TRAIN_SIZE}x{MESH_TRAIN_SIZE}) on the (2,2,2) mesh, one "
+          f"process {np.median(one_ms):.2f} ms, two ranks "
+          + ", ".join(f"rank {r} {np.median(t['step_ms']):.2f} ms"
+                      for r, t in enumerate(timed))
+          + f"; the gradient all-reduce alone ({timed[0]['grad_values']} "
+          f"f32 values, gloo through the host) "
+          + ", ".join(f"rank {r} {np.median(t['all_reduce_ms']):.2f} ms"
+                      for r, t in enumerate(timed))
+          + f"; phase: ranks {ranks_s:.1f} s, whole "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -4351,8 +4750,10 @@ def main() -> int:
     host_ops_launches = host_phase(entries, dev)
     # 16. the multi-device forms on meshes that repeat the card (ninth)
     mesh_launches = mesh_phase(entries, dev, sds["global"])
+    # 17. the mesh across two processes (no kernel of its own)
+    process_mesh_phase(dev)
 
-    # 17. the kernels line
+    # 18. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -4378,7 +4779,7 @@ def main() -> int:
             "launches_mesh": mesh_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 18.
+    # 19.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

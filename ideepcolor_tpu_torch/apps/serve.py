@@ -305,6 +305,16 @@ def _dtype_arg(dtype: str | None):
     return None if dtype in (None, "float32") else dtype
 
 
+def refuse_processes() -> None:
+    """Raise in a run of more than one process (a ``torch.distributed``
+    group or a launcher's ``WORLD_SIZE``): the server is one process, and
+    two would drive the same cards."""
+    n = pmesh.world_size()
+    if n > 1:
+        raise RuntimeError(f"the server runs as one process, and this run "
+                           f"has {n}; start it without a launcher")
+
+
 class ColorizeService:
     """Model state + request handlers, shared across server threads."""
 
@@ -328,7 +338,11 @@ class ColorizeService:
         use_mesh: split the bulk batches (``/colorize_batch``, the
         auto-batcher) over a mesh of every local device of the service's
         type (``parallel.mesh.local_devices``), where there is more than
-        one."""
+        one.
+
+        The service is one process: it refuses to start in a run of more
+        than one (``parallel.mesh.world_size``)."""
+        refuse_processes()
         self.device = resolve_device(device)
         self.size = size
         # one staging buffer for every model's clicks: the graphs are
@@ -1388,6 +1402,10 @@ def main(argv=None):
                         "VmRSS grows this much beyond its post-warmup "
                         "baseline")
     args = p.parse_args(argv)
+    try:
+        refuse_processes()
+    except RuntimeError as e:
+        raise SystemExit(f"serve: {e}") from None
     from ..config import bundled_weights
     boot_t0 = time.time()
     boot_stages: dict = {}

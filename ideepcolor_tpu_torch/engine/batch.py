@@ -22,7 +22,11 @@ chunk runs the single-device program above on its device (K1's batched
 entry, one forward, K2's batched entry) with the weights replicated there
 (``parallel.mesh.replicate``: the module itself where the device repeats).
 The frames are gathered to the caller as numpy and the padding dropped. A
-``device=`` that names another device than the mesh's raises.
+``device=`` that names another device than the mesh's raises, and so does a
+mesh across processes, before any work: another rank's chunks cannot come
+back to this host (the JAX forms fail at ``np.asarray`` there).
+:func:`make_sharded_batch_forward` and :func:`make_sharded_table_forward`
+run this rank's chunks of such a mesh.
 """
 
 from __future__ import annotations
@@ -155,9 +159,18 @@ def _pad_batch(n: int, align: int, *arrays):
 def _device_for(mesh, device) -> torch.device:
     """Where a call prepares its inputs: ``device`` (the card unless
     "cpu"), or the mesh's first device, which ``device`` must then name
-    too."""
+    too. A mesh across processes raises."""
     if mesh is None:
         return resolve_device(device)
+    if mesh.spans_processes:
+        # JAX's forms fail here too, later: np.asarray of an array whose
+        # shards live in another process
+        others = sorted({int(r) for r in mesh.ranks.flat} - {mesh.rank})
+        raise ValueError(
+            f"the mesh= batch forms bring their frames back to this host "
+            f"whole, but this mesh's chunks on rank(s) {others} are not "
+            f"addressable from rank {mesh.rank}; give the batch forms a "
+            f"mesh of this process's devices")
     first = mesh.devices.flat[0]
     if device is not None:
         d = torch.device(device)
@@ -174,15 +187,18 @@ def _sharded(body, mesh, n_batch: int, build, index0: bool = False):
     replicated there (``index0``: the chunk's first global row is passed
     as ``index0=``). ``build(weights, device)`` makes the module from a
     state dict. Returns (fn, batch sharding); fn's outputs are
-    ShardedTensors with one piece per chunk."""
+    ShardedTensors with one piece per chunk of this rank."""
     batch_s = pmesh.batch_sharding(mesh)
     positions = pmesh.batch_positions(mesh)
+    local = set(pmesh.local_batch_positions(mesh))
 
     def fn(weights, *args, **kw):
         net = (weights if isinstance(weights, nn.Module)
-               else build(weights, mesh.devices.flat[0]))
+               else build(weights, mesh.first_local_device))
         outs = {}
         for j, pos in enumerate(positions):
+            if pos not in local:
+                continue
             dev = mesh.devices[pos]
             chunk = [a.piece(pos) for a in args[:n_batch]]
             rest = []
@@ -197,10 +213,11 @@ def _sharded(body, mesh, n_batch: int, build, index0: bool = False):
                 out = body(pmesh.replicate(net, dev), *chunk, *rest, **kw)
             outs[pos] = out if isinstance(out, tuple) else (out,)
         n = args[0].shape[0]
+        first = next(iter(outs.values()))
         res = tuple(
-            pmesh.ShardedTensor(batch_s, (n, *outs[positions[0]][i].shape[1:]),
+            pmesh.ShardedTensor(batch_s, (n, *first[i].shape[1:]),
                                 {pos: o[i] for pos, o in outs.items()})
-            for i in range(len(outs[positions[0]])))
+            for i in range(len(first)))
         return res if len(res) > 1 else res[0]
 
     return fn, batch_s

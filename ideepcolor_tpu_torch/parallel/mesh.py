@@ -1,12 +1,15 @@
-"""Device mesh and sharding, driven by one process.
+"""Device mesh and sharding, one process per host.
 
-Counterpart of ``ideepcolor_tpu/parallel/mesh.py``. JAX's mesh is one
-process driving every local device; so is this one. A :class:`Mesh` is a
-named grid of ``torch.device``s, and the sharded programs (the ``mesh=``
-batch forms of ``engine/batch.py``, ``train.step.make_sharded_train_step``,
-``train.distill.make_sharded_distill_step``) loop over its positions from
-one Python thread, launching each shard's work on its device; on distinct
-cards the launches overlap, as CUDA queues them asynchronously.
+Counterpart of ``ideepcolor_tpu/parallel/mesh.py``. JAX runs one controller
+per host, each driving its local devices; so does this module, with
+``torch.distributed`` for the hosts. A :class:`Mesh` is a named grid of
+``torch.device``s with the rank that drives each position (a JAX device's
+``process_index``). The sharded programs (the ``mesh=`` batch forms of
+``engine/batch.py``, ``train.step.make_sharded_train_step``,
+``train.distill.make_sharded_distill_step``) loop over this process's
+positions (:meth:`Mesh.local_positions`) from one Python thread, launching
+each shard's work on its device; on distinct cards the launches overlap, as
+CUDA queues them asynchronously.
 
 The layouts are JAX's:
 
@@ -27,9 +30,12 @@ positions is the tensor itself (the counterpart of XLA's
 device: a CUDA mesh with a CPU entry raises, and so does a CUDA tensor
 placed on a CPU mesh. Nothing falls back to the CPU.
 
-Only the single-process form of :func:`make_hybrid_mesh` is here; across
-processes (``torch.distributed`` with more than one rank) it raises, ROADMAP
-item 14d.
+Across processes (an initialized ``torch.distributed`` group of W > 1
+ranks), :func:`make_mesh` and :func:`make_hybrid_mesh` exchange each rank's
+devices (``all_gather_object``) and lay them out rank-major, as JAX lays
+out ``jax.devices()``; rank r drives its own positions, tensor parallelism
+never crosses a process, and :func:`put` places only this rank's pieces.
+With one rank, or no group, every mesh is this process's alone.
 """
 
 from __future__ import annotations
@@ -38,10 +44,12 @@ import collections
 import contextlib
 import copy
 import math
+import os
 import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..device import resolve_device
@@ -59,13 +67,44 @@ def _device(d) -> torch.device:
     return d
 
 
+def _group() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_rank() -> int:
+    """This process's rank in the ``torch.distributed`` group; 0 without
+    one."""
+    return dist.get_rank() if _group() else 0
+
+
+def process_count() -> int:
+    """The ranks of the ``torch.distributed`` group; 1 without one."""
+    return dist.get_world_size() if _group() else 1
+
+
+def world_size() -> int:
+    """The processes of this run: the group's ranks where one is
+    initialized, else the launcher's ``WORLD_SIZE`` (``torchrun`` sets
+    it), else 1."""
+    return process_count() if _group() else int(
+        os.environ.get("WORLD_SIZE", "1"))
+
+
+def barrier() -> None:
+    """Wait for every rank of the group; nothing with one rank."""
+    if process_count() > 1:
+        dist.barrier()
+
+
 class Mesh:
     """A named grid of devices: ``devices`` an object ndarray of
     ``torch.device``, ``axis_names`` one name per grid axis, ``shape`` the
-    ordered dict of axis sizes (``jax.sharding.Mesh.shape``). Hashable: the
+    ordered dict of axis sizes (``jax.sharding.Mesh.shape``), ``ranks`` the
+    rank that drives each position (default: this process, at every
+    position) and ``rank`` this process's. Hashable, ranks included: the
     sharded programs are cached per mesh."""
 
-    def __init__(self, devices, axis_names):
+    def __init__(self, devices, axis_names, ranks=None):
         grid = np.asarray(devices, dtype=object)
         cells = np.empty(grid.shape, dtype=object)
         for pos in np.ndindex(grid.shape):
@@ -77,16 +116,46 @@ class Mesh:
         if len(kinds) != 1:
             raise ValueError(f"a mesh lies on one kind of device, got "
                              f"{kinds}")
+        self.rank = process_rank()
+        if ranks is None:
+            ranks = np.full(cells.shape, self.rank, dtype=np.int64)
+        ranks = np.asarray(ranks, dtype=np.int64)
+        if ranks.shape != cells.shape:
+            raise ValueError(f"ranks of shape {ranks.shape} for a device "
+                             f"grid of shape {cells.shape}")
         self.devices = cells
+        self.ranks = ranks
         self.axis_names = tuple(axis_names)
         self.shape = collections.OrderedDict(zip(self.axis_names,
                                                  cells.shape))
+        self._local = tuple(p for p in np.ndindex(cells.shape)
+                            if ranks[p] == self.rank)
         self._key = (self.axis_names, cells.shape,
-                     tuple(str(d) for d in cells.flat))
+                     tuple(str(d) for d in cells.flat),
+                     tuple(int(r) for r in ranks.flat))
 
     @property
     def device_type(self) -> str:
         return self.devices.flat[0].type
+
+    def local_positions(self) -> list[tuple]:
+        """The positions this rank drives, in grid order."""
+        return list(self._local)
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another rank drives some of the positions."""
+        return len(self._local) != self.ranks.size
+
+    @property
+    def first_local_device(self) -> torch.device:
+        """The device of this rank's first position: where a sharded
+        program keeps what it does not split (with one rank, the mesh's
+        first device)."""
+        if not self._local:
+            raise ValueError(f"rank {self.rank} drives no position of this "
+                             f"mesh")
+        return self.devices[self._local[0]]
 
     def __eq__(self, other):
         return isinstance(other, Mesh) and self._key == other._key
@@ -96,14 +165,24 @@ class Mesh:
 
 
 def local_devices(device_type: str = "cuda") -> list[torch.device]:
-    """The devices a mesh takes by default: every visible card (``cuda:0``
-    .. ``cuda:count-1``; raises without one), or ``[cpu]`` for a CPU
-    caller. The command lines and the server build their meshes from this
-    function, so replacing it gives them a mesh that repeats one device."""
+    """The devices a mesh takes by default: this process's cards, or
+    ``[cpu]`` for a CPU caller (raises without a card). One process on a
+    host takes every visible card; under a launcher that starts
+    ``LOCAL_WORLD_SIZE`` processes on the host, the one of ``LOCAL_RANK``
+    l takes its equal share, from ``cuda:l*share``. The command lines and
+    the server build their meshes from this function, so replacing it
+    gives them a mesh that repeats one device."""
     dev = resolve_device(device_type)
     if dev.type == "cpu":
         return [dev]
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    count = torch.cuda.device_count()
+    procs = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    share = count // procs
+    if share == 0:
+        raise ValueError(f"{procs} processes on this host share "
+                         f"{count} cards")
+    first = int(os.environ.get("LOCAL_RANK", "0")) * share
+    return [torch.device("cuda", i) for i in range(first, first + share)]
 
 
 def _grid(devs, shape) -> np.ndarray:
@@ -112,21 +191,54 @@ def _grid(devs, shape) -> np.ndarray:
     return cells.reshape(shape)
 
 
+def _gathered(devices, model_parallel: int) -> tuple[list, list]:
+    """Every rank's devices, rank-major, and the rank of each: this rank's
+    ``devices`` (default :func:`local_devices`) exchanged with
+    ``all_gather_object``. Each rank must give as many devices, a multiple
+    of ``model_parallel`` (tensor parallelism never crosses a process).
+    Every rank raises alike: the checks read the exchanged lists."""
+    devs = [str(_device(d)) for d in
+            (local_devices() if devices is None else devices)]
+    lists: list = [None] * process_count()
+    dist.all_gather_object(lists, devs)
+    sizes = [len(x) for x in lists]
+    if len(set(sizes)) != 1:
+        raise ValueError(f"the ranks give {sizes} devices; a mesh across "
+                         f"processes takes as many from each")
+    if sizes[0] % model_parallel:
+        raise ValueError(f"{model_parallel=} must divide the {sizes[0]} "
+                         f"devices of one process: tensor parallelism "
+                         f"never crosses a process")
+    return ([torch.device(d) for x in lists for d in x],
+            [r for r, x in enumerate(lists) for _ in x])
+
+
 def make_mesh(n_devices: int | None = None, model_parallel: int = 1,
               devices=None) -> Mesh:
     """A (data, model) mesh over the first ``n_devices`` of ``devices``
     (default :func:`local_devices`; a list may repeat one device).
     ``model_parallel`` must divide ``n_devices``; 1 is pure data
-    parallelism."""
-    devs = list(local_devices() if devices is None else devices)
+    parallelism. Across processes the list is every rank's, rank-major,
+    and the mesh spans all of it."""
+    if process_count() > 1:
+        devs, ranks = _gathered(devices, model_parallel)
+    else:
+        devs = list(local_devices() if devices is None else devices)
+        ranks = None
     n = n_devices or len(devs)
     if n % model_parallel:
         raise ValueError(f"{model_parallel=} must divide {n=}")
     if n > len(devs):
         raise ValueError(f"a mesh of {n=} devices needs {n} devices; "
                          f"{len(devs)} are available")
-    return Mesh(_grid(devs[:n], (n // model_parallel, model_parallel)),
-                (DATA_AXIS, MODEL_AXIS))
+    shape = (n // model_parallel, model_parallel)
+    if ranks is None:
+        return Mesh(_grid(devs[:n], shape), (DATA_AXIS, MODEL_AXIS))
+    if n != len(devs):
+        raise ValueError(f"a mesh across {process_count()} processes spans "
+                         f"every rank's devices: {n=} of {len(devs)}")
+    return Mesh(_grid(devs, shape), (DATA_AXIS, MODEL_AXIS),
+                ranks=np.asarray(ranks).reshape(shape))
 
 
 def make_hybrid_mesh(dcn_parallel: int | None = None,
@@ -134,16 +246,26 @@ def make_hybrid_mesh(dcn_parallel: int | None = None,
     """A (dcn, data, model) mesh: the outermost ``dcn`` axis stands for the
     hosts, and the batch is split over (dcn, data). In one process the
     device list is reshaped, ``dcn_parallel`` standing for the host count.
-    Across processes (``torch.distributed`` initialized with more than one
-    rank) it raises: that form is ROADMAP item 14d."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            f"make_hybrid_mesh across {dist.get_world_size()} processes is "
-            f"ROADMAP item 14d; this mesh is driven by one process")
+    Across W processes ``dcn`` is W (``dcn_parallel`` may only repeat it):
+    rank r drives the whole ``dcn = r`` slab, its devices laid out as JAX's
+    per-host granule ``(1, n_local // model_parallel, model_parallel)``."""
+    mp = model_parallel
+    if process_count() > 1:
+        devs, ranks = _gathered(devices, mp)
+        n_hosts = dcn_parallel or process_count()
+        if len(devs) % n_hosts or (len(devs) // n_hosts) % mp:
+            raise ValueError(
+                f"dcn={n_hosts} x {model_parallel=} must divide "
+                f"{len(devs)} devices")
+        if n_hosts != process_count():
+            raise ValueError(f"dcn={n_hosts} across {process_count()} "
+                             f"processes: rank r drives the dcn = r slab, "
+                             f"so dcn is the process count")
+        shape = (n_hosts, len(devs) // (n_hosts * mp), mp)
+        return Mesh(_grid(devs, shape), (DCN_AXIS, DATA_AXIS, MODEL_AXIS),
+                    ranks=np.asarray(ranks).reshape(shape))
     devs = list(local_devices() if devices is None else devices)
-    dcn, mp = dcn_parallel or 1, model_parallel
+    dcn = dcn_parallel or 1
     n = len(devs)
     if n % (dcn * mp):
         raise ValueError(f"{dcn=} x {model_parallel=} must divide {n=}")
@@ -182,8 +304,10 @@ class NamedSharding:
 class ShardedTensor:
     """A tensor laid out over a mesh: ``pieces`` maps mesh positions to the
     chunk of the leading axis each holds (see ``sharding.chunk``). Placed
-    inputs (:func:`put`) have a piece at every position; the outputs of the
-    sharded programs one per chunk, at the model axis's first position."""
+    inputs (:func:`put`) have a piece at every position of this rank; the
+    outputs of the sharded programs one per chunk, at the model axis's
+    first position. Across processes a rank holds only its own pieces, so
+    :meth:`gather` and :meth:`numpy` raise there."""
 
     def __init__(self, sharding: NamedSharding, shape, pieces: dict):
         self.sharding = sharding
@@ -227,8 +351,9 @@ def check_placement(t: torch.Tensor, mesh: Mesh) -> None:
 
 def put(x, sharding: NamedSharding) -> ShardedTensor:
     """Place ``x`` (a tensor or anything ``np.asarray`` takes) on the mesh:
-    ``jax.device_put(x, sharding)``. Each chunk is copied once per distinct
-    device; on a device that already holds ``x`` it is a view."""
+    ``jax.device_put(x, sharding)``, each rank giving the same ``x`` and
+    placing its own positions' pieces. Each chunk is copied once per
+    distinct device; on a device that already holds ``x`` it is a view."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
         np.ascontiguousarray(x))
     mesh = sharding.mesh
@@ -240,7 +365,7 @@ def put(x, sharding: NamedSharding) -> ShardedTensor:
     size = t.shape[0] // n if n > 1 else 0
     made: dict = {}
     pieces = {}
-    for pos in np.ndindex(mesh.devices.shape):
+    for pos in mesh.local_positions():
         dev, k = mesh.devices[pos], sharding.chunk(pos)
         if (k, dev) not in made:
             made[k, dev] = (t[k * size:(k + 1) * size] if n > 1
@@ -289,6 +414,13 @@ def batch_positions(mesh: Mesh) -> list[tuple]:
     shape = tuple(1 if a == MODEL_AXIS else n
                   for a, n in mesh.shape.items())
     return list(np.ndindex(shape))
+
+
+def local_batch_positions(mesh: Mesh) -> list[tuple]:
+    """The batch positions this rank runs: its share of
+    :func:`batch_positions`, in chunk order (all of them with one rank)."""
+    local = set(mesh.local_positions())
+    return [p for p in batch_positions(mesh) if p in local]
 
 
 def model_positions(mesh: Mesh, pos) -> list[tuple]:

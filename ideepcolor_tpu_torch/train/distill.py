@@ -10,7 +10,8 @@ simulated hints for both. The teacher is frozen: it runs under
 activations; the JAX package also rounds its bf16 teacher's activations).
 :func:`make_sharded_distill_step` is the step on a ``parallel.mesh.Mesh``,
 data parallel only, as in JAX: teacher and student replicated, the
-student's gradient summed over the batch positions.
+student's gradient summed over the batch positions (and averaged over the
+ranks on a mesh across processes).
 """
 
 from __future__ import annotations
@@ -127,13 +128,15 @@ def make_distill_step(cfg: DistillConfig):
 def make_sharded_distill_step(cfg: DistillConfig, mesh):
     """The distillation step on ``mesh``, data parallel over its batch
     axes. Returns ``(step, shard_state, shard_batch, put_teacher)``:
-    ``shard_state`` puts the student on the mesh's first device (no tensor
-    parallelism), ``put_teacher`` replicates the frozen teacher to every
-    position, ``step(state, teacher, batch, generator=None, hints=None)``
-    as :func:`make_distill_step`'s. Each batch position runs
+    ``shard_state`` puts the student on this rank's first mesh device (no
+    tensor parallelism; rank 0's across processes), ``put_teacher``
+    replicates the frozen teacher to this rank's positions,
+    ``step(state, teacher, batch, generator=None, hints=None)`` as
+    :func:`make_distill_step`'s. Each batch position of this rank runs
     :func:`distill_loss` on its chunk; the loss is the chunks' mean and one
-    backward sums the student's gradient (``train.step``'s machinery). On a
-    (1, 1) mesh this is :func:`make_distill_step`'s step."""
+    backward sums the student's gradient (``train.step``'s machinery, which
+    averages it over the ranks across processes). On a (1, 1) mesh this is
+    :func:`make_distill_step`'s step."""
     tcfg = as_train_config(cfg)
 
     def shard_state(state):
@@ -159,9 +162,9 @@ def make_sharded_distill_step(cfg: DistillConfig, mesh):
                         tstep.replicate_params(state["params"], mesh, pos),
                         {k: tstep.placed_at(v, mesh, pos)
                          for k, v in teacher.items()}, b, cfg, hints=h))
-            return tstep.mean_over_chunks(results, mesh.devices.flat[0])
+            return tstep.mean_over_chunks(results, mesh.first_local_device)
 
-        return state, tstep.apply_update(state, tcfg, loss_and_aux)
+        return state, tstep.apply_update(state, tcfg, loss_and_aux, mesh)
 
     return step, shard_state, shard_batch, put_teacher
 

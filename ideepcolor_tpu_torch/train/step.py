@@ -21,7 +21,10 @@ data parallel over its batch axes, tensor parallel on the trunk convs over
 its model axis (``parallel.mesh.TP_PARAMS``). Its state holds each such
 param as a tuple of out-channel slices, one per model-axis device; the
 train-state file holds every param whole, so a sharded run's file loads in
-a single-device run and back.
+a single-device run and back. On a mesh across processes each rank runs
+its own chunks, and the gradients, the loss and the aux values are
+averaged over the ranks (``all_reduce``) before the update; rank 0 writes
+the file.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -170,11 +174,42 @@ def loss_fn(params, batch, cfg: TrainConfig, centers: torch.Tensor,
     return total, {"loss": total, "reg": l_reg, "cls": l_cls}
 
 
-def apply_update(state: dict, cfg, loss_and_aux) -> dict:
+def _flat_collective(tensors: list[torch.Tensor], op) -> None:
+    """``op`` (an in-place collective on one tensor) over ``tensors``,
+    through one flat buffer per device and dtype, copied back in place.
+    Every rank passes tensors of the same shapes in the same order."""
+    groups: dict = {}
+    for t in tensors:
+        groups.setdefault((t.device, t.dtype), []).append(t)
+    with torch.no_grad():
+        for ts in groups.values():
+            flat = torch.cat([t.reshape(-1) for t in ts])
+            op(flat)
+            for t, part in zip(ts, flat.split([t.numel() for t in ts])):
+                t.copy_(part.view_as(t))
+
+
+def mean_over_processes(tensors: list[torch.Tensor]) -> None:
+    """Each tensor replaced in place by its mean over the ranks of the
+    ``torch.distributed`` group: ``all_reduce`` of the sum, divided by the
+    rank count. The ranks end with the same bytes."""
+    w = pmesh.process_count()
+
+    def mean(flat):
+        dist.all_reduce(flat)
+        flat.div_(w)
+    _flat_collective(tensors, mean)
+
+
+def apply_update(state: dict, cfg, loss_and_aux, mesh=None) -> dict:
     """Backward of ``loss_and_aux()``'s total and one Adam update at the
     schedule's lr, with the convs' precision scope held over the backward
-    (its convs run after the forward's scope would have closed). Returns
-    the aux values, detached."""
+    (its convs run after the forward's scope would have closed). On a
+    ``mesh`` across processes, every gradient (each slice of a sliced
+    param) and every aux value is first averaged over the ranks: each
+    rank's total is the mean over its chunks, so with equal chunks per rank
+    the update follows the gradient of the global mean. Returns the aux
+    values, detached."""
     opt = state["opt"]
     for g in opt.param_groups:
         g["lr"] = lr_at(cfg, state["step"])
@@ -182,9 +217,18 @@ def apply_update(state: dict, cfg, loss_and_aux) -> dict:
     with conv_precision(cfg.precision_name):
         total, aux = loss_and_aux()
         total.backward()
+    aux = {k: v.detach() for k, v in aux.items()}
+    if mesh is not None and mesh.spans_processes:
+        # after backward, not in hooks: a rematerialized forward runs its
+        # hooks again
+        mean_over_processes([p.grad for g in opt.param_groups
+                             for p in g["params"] if p.grad is not None])
+        values = torch.stack(list(aux.values()))
+        mean_over_processes([values])
+        aux = dict(zip(aux, values.unbind()))
     opt.step()
     state["step"] += 1
-    return {k: v.detach() for k, v in aux.items()}
+    return aux
 
 
 def make_train_step(cfg: TrainConfig):
@@ -265,18 +309,35 @@ def _sliced_opt_state(whole: dict, params: dict) -> dict:
                              for g in whole["param_groups"]]}
 
 
+def _broadcast_state(state: dict) -> None:
+    """Rank 0's params and Adam's moments and counts, in place on every
+    rank: a JAX ``device_put`` of one host value to a global sharding
+    assumes every process gives the same bytes."""
+    leaves = list(_leaves(state["params"]).values())
+    opt = state["opt"]
+    tensors = leaves + [v for p in leaves for v in opt.state.get(
+        p, {}).values() if isinstance(v, torch.Tensor)]
+    shapes: list = [None] * pmesh.process_count()
+    dist.all_gather_object(shapes, [tuple(t.shape) for t in tensors])
+    if any(s != shapes[0] for s in shapes):
+        raise ValueError("the ranks' train states differ in layout (a "
+                         "resumed rank beside a fresh one?)")
+    _flat_collective(tensors, lambda flat: dist.broadcast(flat, src=0))
+
+
 def shard_train_state(state: dict, cfg, mesh,
                       tensor_parallel: bool = True) -> dict:
-    """A train state laid out for ``mesh``: every param a leaf on the
-    mesh's first device, except, with ``tensor_parallel``, the trunk convs
-    (``parallel.mesh.TP_PARAMS``), split on their out channels into one
-    slice per model-axis device at the first data position; Adam's moments
-    follow their params. Where nothing moves, ``state`` itself. The state
-    given is consumed, as JAX donates it: the result may share its
-    tensors."""
-    first = mesh.devices.flat[0]
+    """A train state laid out for ``mesh``: every param a leaf on this
+    rank's first mesh device, except, with ``tensor_parallel``, the trunk
+    convs (``parallel.mesh.TP_PARAMS``), split on their out channels into
+    one slice per model-axis device at this rank's first data position;
+    Adam's moments follow their params. Where nothing moves, ``state``
+    itself. On a mesh across processes every rank then holds rank 0's
+    params and moments (broadcast). The state given is consumed, as JAX
+    donates it: the result may share its tensors."""
+    first = mesh.first_local_device
     mdevs = [mesh.devices[p] for p in pmesh.model_positions(
-        mesh, pmesh.batch_positions(mesh)[0])]
+        mesh, pmesh.local_batch_positions(mesh)[0])]
     new = {}
     for k, v in full_params(state["params"]).items():
         old = state["params"][k]
@@ -292,11 +353,15 @@ def shard_train_state(state: dict, cfg, mesh,
             pmesh.check_placement(v, mesh)
             new[k] = v.to(first, copy=True).requires_grad_(True)
     if all(new[k] is state["params"][k] for k in new):
-        return state
-    opt = make_optimizer(cfg, _leaves(new))
-    opt.load_state_dict(_sliced_opt_state(
-        _whole_opt_state(state["params"], state["opt"]), new))
-    return {"params": new, "opt": opt, "step": state["step"]}
+        out = state
+    else:
+        opt = make_optimizer(cfg, _leaves(new))
+        opt.load_state_dict(_sliced_opt_state(
+            _whole_opt_state(state["params"], state["opt"]), new))
+        out = {"params": new, "opt": opt, "step": state["step"]}
+    if mesh.spans_processes:
+        _broadcast_state(out)
+    return out
 
 
 def replicate_params(params: dict, mesh, pos) -> dict:
@@ -319,43 +384,48 @@ def placed_at(x, mesh, pos) -> torch.Tensor:
     return x.to(mesh.devices[pos])
 
 
-def _chunk(x, mesh, positions) -> list[torch.Tensor]:
-    """The batch chunk of each position: a placed batch's pieces, or a
-    whole tensor split into equal chunks."""
+def _chunk(x, mesh) -> list[torch.Tensor]:
+    """The batch chunk of each of this rank's batch positions: a placed
+    batch's pieces, or a whole tensor split into equal chunks over every
+    batch position of the mesh."""
+    local = pmesh.local_batch_positions(mesh)
     if isinstance(x, pmesh.ShardedTensor):
-        return [x.piece(p) for p in positions]
+        return [x.piece(p) for p in local]
     pmesh.check_placement(x, mesh)
+    positions = pmesh.batch_positions(mesh)
     if x.shape[0] % len(positions):
         raise ValueError(f"a batch of {x.shape[0]} does not split into "
                          f"{len(positions)} equal chunks")
-    return [c.to(mesh.devices[p]) for c, p in
-            zip(x.split(x.shape[0] // len(positions)), positions)]
+    size = x.shape[0] // len(positions)
+    return [x[i * size:(i + 1) * size].to(mesh.devices[p])
+            for i, p in enumerate(positions) if p in local]
 
 
 def shard_inputs(mesh, batch: dict, generator, hints, p_keep: float
                  ) -> list[tuple]:
-    """Per batch position of ``mesh``: (position, batch chunk, hints). The
-    hints are ``hints`` split like the batch or, without them, drawn ONCE
-    for the whole batch from ``generator`` on the mesh's first device
-    (``hints_sim.draw_hint_numbers``) and computed per chunk, so a sharded
-    step sees the single-device step's hints."""
-    positions = pmesh.batch_positions(mesh)
-    chunks = {k: _chunk(v, mesh, positions) for k, v in batch.items()}
+    """Per batch position of ``mesh`` that this rank runs: (position,
+    batch chunk, hints). Every rank gives the whole batch (placed or not).
+    The hints are ``hints`` split like the batch or, without them, drawn
+    ONCE for the whole batch from ``generator`` on this rank's first mesh
+    device (``hints_sim.draw_hint_numbers``; every rank seeds its own
+    generator alike) and computed per chunk, so a sharded step sees the
+    single-device step's hints."""
+    local = pmesh.local_batch_positions(mesh)
+    chunks = {k: _chunk(v, mesh) for k, v in batch.items()}
     if hints is not None:
-        hint_chunks = [_chunk(h, mesh, positions) for h in hints]
+        hint_chunks = [_chunk(h, mesh) for h in hints]
     else:
-        n = sum(c.shape[0] for c in chunks["ab"])
-        draws = hints_sim.draw_hint_numbers(n, generator,
-                                            mesh.devices.flat[0])
-        draw_chunks = [[None] * len(positions) if d is None else
-                       _chunk(d, mesh, positions) for d in draws]
+        draws = hints_sim.draw_hint_numbers(batch["ab"].shape[0], generator,
+                                            mesh.first_local_device)
+        draw_chunks = [[None] * len(local) if d is None else _chunk(d, mesh)
+                       for d in draws]
         hint_chunks = list(zip(*[
             hints_sim.hints_from_draws(ab, *(d[j] for d in draw_chunks),
                                        p_keep=p_keep)
             for j, ab in enumerate(chunks["ab"])]))
     return [(p, {k: c[j] for k, c in chunks.items()},
              tuple(h[j] for h in hint_chunks))
-            for j, p in enumerate(positions)]
+            for j, p in enumerate(local)]
 
 
 def mean_over_chunks(results: list, device) -> tuple:
@@ -379,7 +449,10 @@ def make_sharded_train_step(cfg: TrainConfig, mesh):
     replicated to it (:func:`replicate_params`); the loss is the mean of
     the chunks' (equal chunks); ONE backward sums the replicas' gradients
     into the master params, then one Adam update at the schedule's lr. On
-    a (1, 1) mesh this is :func:`make_train_step`'s step."""
+    a (1, 1) mesh this is :func:`make_train_step`'s step. Across
+    processes each rank runs its positions and gives the whole batch and a
+    generator seeded alike; :func:`apply_update` averages the ranks'
+    gradients."""
     grids: dict = {}
 
     def centers_on(dev):
@@ -405,9 +478,9 @@ def make_sharded_train_step(cfg: TrainConfig, mesh):
                     results.append(loss_fn(
                         replicate_params(state["params"], mesh, pos), b,
                         cfg, centers_on(dev), hints=h))
-            return mean_over_chunks(results, mesh.devices.flat[0])
+            return mean_over_chunks(results, mesh.first_local_device)
 
-        return state, apply_update(state, cfg, loss_and_aux)
+        return state, apply_update(state, cfg, loss_and_aux, mesh)
 
     return step, shard_state, shard_batch
 
@@ -417,10 +490,15 @@ def make_sharded_train_step(cfg: TrainConfig, mesh):
 # state is written whole -----
 
 def save_train_state(path: str, state: dict) -> None:
-    torch.save({"format": STATE_FORMAT,
-                "params": full_params(state["params"]),
-                "opt": _whole_opt_state(state["params"], state["opt"]),
-                "step": int(state["step"])}, path)
+    """Write ``state`` to ``path``. In a ``torch.distributed`` group every
+    rank calls it: rank 0 writes, and every rank waits at a barrier until
+    the file is whole."""
+    if pmesh.process_rank() == 0:
+        torch.save({"format": STATE_FORMAT,
+                    "params": full_params(state["params"]),
+                    "opt": _whole_opt_state(state["params"], state["opt"]),
+                    "step": int(state["step"])}, path)
+    pmesh.barrier()
 
 
 def load_train_state(path: str, cfg, device=None) -> dict:

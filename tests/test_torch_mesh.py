@@ -69,7 +69,9 @@ def test_mesh_errors_match_jax(jax_call, port_call):
 def test_mixed_meshes_and_placements_raise(monkeypatch):
     """A mesh lies on one kind of device; a tensor of another device than
     the CPU never moves onto a CPU mesh (a meta tensor stands for a CUDA
-    one here); across processes the hybrid mesh is item 14d."""
+    one here); across processes (a stand-in group of two ranks whose peer
+    gives the same devices) a ``model_parallel`` that does not divide one
+    rank's devices raises, as does a dcn other than the rank count."""
     with pytest.raises(ValueError, match="one kind"):
         pmesh.Mesh(np.array([["cpu", "cuda:0"]], dtype=object),
                    ("data", "model"))
@@ -83,8 +85,46 @@ def test_mixed_meshes_and_placements_raise(monkeypatch):
     import torch.distributed as dist
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="14d"):
-        pmesh.make_hybrid_mesh(2, 2, devices=CPU8)
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    monkeypatch.setattr(dist, "all_gather_object",
+                        lambda out, obj: out.__setitem__(slice(None),
+                                                         [obj] * len(out)))
+    for call in (lambda: pmesh.make_hybrid_mesh(2, 2, devices=CPU8[:3]),
+                 lambda: pmesh.make_mesh(6, 2, devices=CPU8[:3])):
+        with pytest.raises(ValueError, match="never crosses a process"):
+            call()
+    with pytest.raises(ValueError, match="dcn is the process count"):
+        pmesh.make_hybrid_mesh(4, 1, devices=CPU8[:4])
+    hm = pmesh.make_hybrid_mesh(2, 2, devices=CPU8[:4])
+    assert hm.devices.shape == (2, 2, 2) and hm.rank == 1
+    assert hm.ranks.tolist() == [[[0, 0], [0, 0]], [[1, 1], [1, 1]]]
+    assert hm.local_positions() == [(1, 0, 0), (1, 0, 1), (1, 1, 0),
+                                    (1, 1, 1)]
+    assert hm.spans_processes
+
+
+@pytest.mark.parametrize("procs,rank,want", [
+    (None, None, [0, 1, 2, 3]), ("1", "0", [0, 1, 2, 3]),
+    ("2", "1", [2, 3]), ("4", "3", [3])])
+def test_local_devices_take_the_local_ranks_share(monkeypatch, procs, rank,
+                                                  want):
+    """One process takes every card of its host; of ``LOCAL_WORLD_SIZE``
+    processes a launcher starts on a host, the one of ``LOCAL_RANK`` takes
+    its equal share (four stand-in cards here); more processes than cards
+    raise."""
+    monkeypatch.setattr(pmesh, "resolve_device", torch.device)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    for name, value in (("LOCAL_WORLD_SIZE", procs), ("LOCAL_RANK", rank)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    assert pmesh.local_devices("cuda") == [torch.device("cuda", i)
+                                           for i in want]
+    assert pmesh.local_devices("cpu") == [torch.device("cpu")]
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")
+    with pytest.raises(ValueError, match="share 4 cards"):
+        pmesh.local_devices("cuda")
 
 
 def test_param_shardings_split_jax_keys_on_oihw_axis0():

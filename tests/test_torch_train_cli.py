@@ -125,10 +125,35 @@ def test_distill_from_random_teacher(data, tmp_path):
     assert st["step"] == 2
 
 
+def test_export_pth_loads_strictly(data, tmp_path):
+    """``--export w.pth``: a state dict, BatchNorm's
+    ``num_batches_tracked`` included, that the port's ``SIGGRAPHGenerator``
+    at the student's width loads with ``strict=True``, holding the trained
+    params of the run's last train state; the package's loaders read it as
+    they read the ``.npz``."""
+    export = str(tmp_path / "w.pth")
+    assert train_cli.main(base_args(data, tmp_path, "--steps", "1",
+                                    "--init-from", STUDENT,
+                                    "--export", export)) == 0
+    sd = torch.load(export, map_location="cpu", weights_only=True)
+    net = tsig.SIGGRAPHGenerator(tsig.scaled_channels(0.25))
+    net.load_state_dict(sd, strict=True)
+    state = tstep.load_train_state(str(tmp_path / "ck_1.pt"),
+                                   tstep.TrainConfig(), "cpu")
+    assert set(sd) - set(state["params"]) == {
+        k for k in sd if k.endswith("num_batches_tracked")}
+    assert all(torch.equal(sd[k], state["params"][k].detach())
+               for k in state["params"])
+    assert all(torch.equal(a, b) for a, b in zip(
+        tsig.load_state_dict_file(export).values(), sd.values()))
+    click(export)
+
+
 def test_refusals(data, tmp_path, monkeypatch):
     """--model-parallel 2 on one device fails with make_mesh's ValueError
     (JAX fails there too, with too few devices for the mesh); --resume
-    with --init-from, and an export that is not .npz, are refused before
+    with --init-from, and an export that is neither .npz nor .pth (JAX's
+    other form is an orbax directory), are refused before
     any work; a corpus with a JPEG and no OpenCV raises instead of
     shrinking; without a card and without --device cpu the CLIs raise."""
     args = base_args(data, tmp_path, "--steps", "1")
@@ -136,8 +161,8 @@ def test_refusals(data, tmp_path, monkeypatch):
         train_cli.main(args + ["--model-parallel", "2"])
     with pytest.raises(SystemExit, match="mutually"):
         train_cli.main(args + ["--resume", "x.pt", "--init-from", STUDENT])
-    with pytest.raises(SystemExit, match=r"\.npz"):
-        train_cli.main(args + ["--export", str(tmp_path / "w.pth")])
+    with pytest.raises(SystemExit, match=r"\.npz or \.pth"):
+        train_cli.main(args + ["--export", str(tmp_path / "w_orbax")])
     (data / "photo.jpg").write_bytes(b"\xff\xd8\xff\xe0" + b"\x00" * 64)
     monkeypatch.setattr(imageio, "_cv2", lambda: None)
     for mode in ("device", "host"):
