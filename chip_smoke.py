@@ -272,11 +272,45 @@ or more each; any failure exits non-zero:
    MP_DEADLINE_S; a rank that fails or outlives it fails the run. Printed:
    the train step's host ms in one process and in each rank, and the
    gradient all-reduce's alone. No kernel of K1 or K2 runs here;
-18. one JSON line listing each kernel entry with its launches on the nine
+18. the reference's doors, the eleventh path, with launch counts of its
+   own, in a child process (``chip_smoke.py --doors-child``) whose
+   sys.path starts with the port's drop-in root
+   (``ideepcolor_tpu_torch/compat``: the repository root's own ``data/``
+   and ``caffe.py`` are the JAX package's drop-ins and would shadow it);
+   the child reads its own counts and hands them back. cuDNN's
+   deterministic kernels are chosen for the whole child. Counted: the
+   reference's code run verbatim through the drop-in --
+   ``CI.ColorizeImageTorch(Xd=256)``, ``prep_net(0, path=teacher.npz)``, a
+   seeded 1000x750 image, ten ``net_forward`` clicks that add a point each
+   with the notebook's ``put_point``, each followed by the table click of
+   the same points (the port's own click, which the drop-in class keeps),
+   the full-res, mask and input getters; the global-histogram pattern
+   (``import caffe``, ``caffe.Net`` on global_stats, blob stuffing,
+   ``caffe.io``) with a seeded calibrated global net written as a
+   ``.caffemodel``; both port notebooks (``notebooks/torch``) cell by cell
+   on the card (read as JSON; where matplotlib does not import, a
+   stand-in ``matplotlib.pyplot`` records the plotting calls, and every
+   device call runs for real); ``apps.convert`` on the teacher (.npz ->
+   .pth, timed) and on the three seeded ``.caffemodel`` files. K1's
+   batched entry and K2's compose and fused entries must launch. Then:
+   (a) ``data.colorize_image`` and ``caffe`` resolve to the drop-in root,
+   and no module of JAX or the JAX package is loaded at the child's end;
+   (b) the drop-in session's frames byte-identical to the same clicks
+   through ``ideepcolor_tpu_torch.api``, each dense click within the frame
+   bound of its table click; (c) the converted ``.pth``'s frames
+   byte-identical to the ``.npz``'s; (d) main, dist and global: each
+   ``.caffemodel``'s outputs byte-identical to its converted ``.npz``'s;
+   (e) the global pattern against its CPU twin (``gpu_id=-1``) within the
+   CAFFE_* bounds, ``glob_dist_in`` within 1e-6 and summing to 1 within
+   1e-4; (f) the notebooks' frames of the right shapes, on the card.
+   Printed: the drop-in click's p50 / p95 on the host clock beside the
+   API's, in turns in the same child; the converter's seconds for the
+   teacher; the phase's wall time;
+19. one JSON line listing each kernel entry with its launches on the ten
    paths that launch kernels, its error against the plain version, its
    time, the plain version's, its bound and what sets it, and the shape
    and plane layout those numbers were measured at;
-19. last line: {"ok": true, "device": {...}}.
+20. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -420,6 +454,15 @@ MP_DEADLINE_S = 600
 MP_LOSS_BOUND = 1e-6
 MP_APP_STEPS, MP_APP_BATCH = 4, 4
 MP_MESHES = ("(2,2,2)", "(4,2)")
+
+# phase 18, the reference's doors: a child process with the drop-in root
+# first on sys.path; its deadline, the hints of its ten reference-style
+# clicks and the timed clicks of each of the two sessions
+COMPAT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "ideepcolor_tpu_torch", "compat")
+DOORS_DEADLINE_S = 400
+DOORS_CLICKS = 10
+DOORS_TIMED = 30
 
 
 def die(msg: str) -> None:
@@ -3049,6 +3092,323 @@ def process_mesh_phase(dev) -> None:
     tmp.cleanup()
 
 
+def doors_phase(entries, dev_name: str = "cuda") -> dict:
+    """Phase 18: the reference's doors, in a child process (``python3
+    chip_smoke.py --doors-child WORK DEVICE``) whose sys.path starts with
+    the port's drop-in root, so that ``data`` and ``caffe`` are the port's
+    and not the repository root's (the JAX package's drop-ins). The child
+    reads its own launch counts (they live in its process) and writes them
+    into WORK/doors.json; it exits non-zero on any failed check. Returns
+    the counts. ``dev_name="cpu"`` rehearses the phase."""
+    t0 = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    env = {**os.environ, "MPLBACKEND": "Agg"}
+    try:
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--doors-child",
+             work.name, dev_name], cwd=work.name, env=env,
+            timeout=DOORS_DEADLINE_S)
+    except subprocess.TimeoutExpired:
+        die(f"phase 18: the child still ran after {DOORS_DEADLINE_S} s")
+    if res.returncode != 0:
+        die(f"phase 18: the child failed (exit {res.returncode})")
+    with open(os.path.join(work.name, "doors.json")) as f:
+        report = json.load(f)
+    work.cleanup()
+    launches = {k.name: report["launches"].get(k.name, 0) for k in entries}
+    print(f"phase 18, the reference's doors: {time.perf_counter() - t0:.1f} "
+          f"s with the child's start, launches {launches}")
+    return launches
+
+
+def _stand_in_pyplot() -> list:
+    """A ``matplotlib.pyplot`` that records its calls, for a machine
+    without matplotlib: the notebooks' plotting only; every device call in
+    them runs for real. Returns the list the calls go to."""
+    import types
+    calls: list = []
+    plt = types.ModuleType("matplotlib.pyplot")
+    for name in ("figure", "imshow", "title", "axis", "colorbar", "xlabel",
+                 "ylabel", "show", "close", "subplot"):
+        setattr(plt, name, lambda *a, _n=name, **k: calls.append(_n))
+    mpl = types.ModuleType("matplotlib")
+    mpl.pyplot = plt
+    sys.modules["matplotlib"], sys.modules["matplotlib.pyplot"] = mpl, plt
+    return calls
+
+
+def doors_child(work: str, dev_name: str) -> int:
+    """The child of phase 18: the reference's code through the drop-in
+    root on ``dev_name``, launches counted, then every comparison. See the
+    module docstring, phase 18."""
+    sys.path.insert(0, COMPAT_DIR)
+    repo = os.path.dirname(os.path.dirname(COMPAT_DIR))
+    import torch
+    torch.backends.cudnn.deterministic = True     # byte-for-byte checks
+    import caffe
+    from data import colorize_image as CI
+    from ideepcolor_tpu_torch import api
+    from ideepcolor_tpu_torch.apps import convert
+    from ideepcolor_tpu_torch.models import caffe_net, caffemodel_io
+    from ideepcolor_tpu_torch.ops import hints
+    from ideepcolor_tpu_torch.ops.cuda import build
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+    from ideepcolor_tpu_torch.utils.imageio import encode_png
+    from ideepcolor_tpu_torch.utils.notebook import run_cells
+    on_card = dev_name != "cpu"
+    gpu_id = 0 if on_card else -1
+    dev = torch.device(dev_name)
+    entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
+               k2.KERNEL_BATCH)
+    if on_card:
+        build.build_all(entries)                  # built by the parent
+    teacher = os.path.join(repo, WEIGHTS)
+    files = {"data.colorize_image": CI.__file__, "caffe": caffe.__file__}
+    for mod, path in files.items():
+        if not os.path.abspath(path).startswith(COMPAT_DIR):
+            die(f"phase 18: {mod} resolves to {path}, not the drop-in root")
+
+    # the files the reference's code reads: the notebooks' images at their
+    # paths, the session's image, seeded calibrated Caffe weights of each
+    # graph as .caffemodel
+    imgs = os.path.join(work, "test_imgs")
+    os.makedirs(os.path.join(imgs, "global_ref_bird"))
+    img_path = os.path.join(imgs, "mortar_pestle.jpg")
+    ref_path = os.path.join(imgs, "global_ref_bird",
+                            "ILSVRC2012_val_00002383.JPEG")
+    gray = image(6, 480, 640).mean(-1).astype(np.uint8)
+    for path, img in ((img_path, image(5, *FULLRES_HW)),
+                      (ref_path, image(9, 375, 500)),
+                      (os.path.join(imgs, "bird_gray.jpg"),
+                       np.repeat(gray[..., None], 3, -1))):
+        with open(path, "wb") as f:
+            f.write(encode_png(img))
+    caffemodel = {}
+    for v in caffe_net.VARIANTS:
+        caffemodel[v] = os.path.join(work, f"{v}.caffemodel")
+        with open(caffemodel[v], "wb") as f:
+            f.write(caffemodel_io.encode_caffemodel(
+                caffemodel_io.layers_from_state_dict(caffe_net.init_state_dict(
+                    v, seed=CAFFE_SEED, calibrate=True))))
+    try:
+        import matplotlib.pyplot  # noqa: F401
+        plot_calls = None
+    except ImportError:
+        plot_calls = _stand_in_pyplot()
+        print("phase 18: no matplotlib on this machine; the notebooks plot "
+              "into a stand-in matplotlib.pyplot that records the calls")
+
+    clicks = session_hints(DOORS_CLICKS, seed=18)
+    for c in clicks:                  # put_point's slice needs the margin
+        c["y"] = min(max(c["y"], c["radius"]), S - 1 - c["radius"])
+        c["x"] = min(max(c["x"], c["radius"]), S - 1 - c["radius"])
+
+    def teacher_session(model, timed=None):
+        """The reference's local-hints pattern at Xd=256: ten dense clicks
+        that add a point each (the notebook's put_point), each followed by
+        the table click of the same points, then the getters."""
+        model.load_image(img_path)
+        out = {}
+        ab, mask = np.zeros((2, S, S)), np.zeros((1, S, S))
+        for i, c in enumerate(clicks):
+            hints.put_point(ab, mask, [c["y"], c["x"]], c["radius"], c["ab"])
+            out[f"dense{i}"] = model.net_forward(ab, mask).copy()
+            out[f"ab_dense{i}"] = model.output_ab.copy()
+            out[f"table{i}"] = model.net_forward_table(
+                *hints.points_json_to_table(clicks[:i + 1], S)).copy()
+        out["fullres"] = model.get_img_fullres()
+        out["mask_fullres"] = model.get_img_mask_fullres()
+        out["input_fullres"] = model.get_input_img_fullres()
+        return out, (ab, mask)
+
+    def global_pattern(gid):
+        """DemoGlobalHistogramTransfer's reference pattern (``import
+        caffe``, blob stuffing) at Xd=256 with the seeded global net."""
+        cid = CI.ColorizeImageCaffeGlobDist(S)
+        cid.prep_net(gid, prototxt_path='./models/global_model/'
+                     'deploy_nodist.prototxt',
+                     caffemodel_path=caffemodel["global"])
+        gt_glob_net = caffe.Net('./models/global_model/global_stats.prototxt',
+                                './models/global_model/dummy.caffemodel',
+                                caffe.TEST)
+        cid.load_image(img_path)
+        input_ab, input_mask = np.zeros((2, S, S)), np.zeros((1, S, S))
+        out = {"auto": cid.net_forward(input_ab, input_mask).copy(),
+               "ab_auto": cid.output_ab.copy()}
+        ref_img_fullres = caffe.io.load_image(ref_path)
+        img_glob_dist = (255 * caffe.io.resize_image(
+            ref_img_fullres, (256, 256))).astype('uint8')
+        gt_glob_net.blobs['img_bgr'].data[...] = \
+            img_glob_dist[:, :, ::-1].transpose((2, 0, 1))
+        gt_glob_net.forward()
+        out["glob"] = gt_glob_net.blobs['gt_glob_ab_313_drop'] \
+            .data[0, :-1, 0, 0].copy()
+        out["pred"] = cid.net_forward(input_ab, input_mask,
+                                      out["glob"]).copy()
+        out["ab_pred"] = cid.output_ab.copy()
+        out["fullres"] = cid.get_img_fullres()
+        return out
+
+    # the doors, counted: the drop-in teacher session, the global pattern,
+    # both notebooks, the converter
+    for k in entries:
+        k.launches = 0
+    t0 = time.perf_counter()
+    drop = CI.ColorizeImageTorch(Xd=S)
+    drop.prep_net(gpu_id, path=teacher)
+    if drop.device.type != dev.type:
+        die(f"phase 18: prep_net({gpu_id}) built the model on {drop.device}")
+    dframes, (ab, mask) = teacher_session(drop)
+    gcard = global_pattern(gpu_id)
+    nbs = {}
+    for name in ("DemoInteractiveColorization",
+                 "DemoGlobalHistogramTransfer"):
+        nbs[name] = {}
+        for _ in run_cells(os.path.join(repo, "notebooks", "torch",
+                                        f"{name}.ipynb"),
+                           {"DEVICE": dev_name}, nbs[name]):
+            pass
+    t1 = time.perf_counter()
+    teacher_pth = os.path.join(work, "teacher.pth")
+    if convert.main([teacher, teacher_pth]) != 0:
+        die("phase 18: apps.convert failed on the teacher")
+    convert_s = time.perf_counter() - t1
+    converted = {}
+    for v in caffe_net.VARIANTS:
+        converted[v] = os.path.join(work, f"{v}.npz")
+        if convert.main([caffemodel[v], converted[v], "--variant", v]) != 0:
+            die(f"phase 18: apps.convert failed on the {v} .caffemodel")
+    if on_card:
+        torch.cuda.synchronize()
+    doors_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in entries}
+    print(f"phase 18: the doors ran {doors_s:.2f} s: the drop-in teacher "
+          f"session ({DOORS_CLICKS} net_forward + {DOORS_CLICKS} "
+          f"net_forward_table clicks, the getters), the global pattern, "
+          f"both notebooks, the converter; launches {launches}")
+    if on_card:
+        for k in (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB):
+            if launches[k.name] == 0:
+                die(f"phase 18: kernel {k.name} was not launched on the "
+                    f"reference's doors")
+
+    # (b) the same clicks through ideepcolor_tpu_torch.api: byte for byte
+    direct = api.ColorizeImageTorch(Xd=S, device=dev)
+    direct.prep_net(path=teacher)
+    aframes, _ = teacher_session(direct)
+    for key, want in aframes.items():
+        if not np.array_equal(dframes[key], want):
+            die(f"phase 18: the drop-in's {key} differs from the API's")
+    for i in range(DOORS_CLICKS):
+        frame_check(f"phase 18 dense vs table click {i}", dframes[f"dense{i}"],
+                    dframes[f"table{i}"], FRAME_BOUND_LSB, FRAME_BOUND_SHARE)
+    # (c) the converter's .pth: the same frames as the .npz
+    via_pth = api.ColorizeImageTorch(Xd=S, device=dev)
+    via_pth.prep_net(path=teacher_pth)
+    pframes, _ = teacher_session(via_pth)
+    for key, want in aframes.items():
+        if not np.array_equal(pframes[key], want):
+            die(f"phase 18: the converted .pth's {key} differs from the "
+                f".npz's")
+    # (d) each .caffemodel against its converted .npz
+    table = hints.points_json_to_table(clicks, S)
+    glob_in = gcard["glob"]
+    for v, cls in (("main", api.ColorizeImageTorchCaffe),
+                   ("dist", api.ColorizeImageTorchCaffeDist),
+                   ("global", api.ColorizeImageTorchCaffeGlobDist)):
+        got = {}
+        for form, path in (("caffemodel", caffemodel[v]),
+                           ("npz", converted[v])):
+            m = cls(Xd=S, device=dev)
+            m.prep_net(0, caffemodel_path=path)
+            m.load_image(img_path)
+            if v == "global":
+                out = [m.net_forward(ab, mask, glob_in).copy()]
+            else:
+                out = [m.net_forward(ab, mask).copy()]
+                if v == "main":
+                    out.append(m.net_forward_table(*table).copy())
+                else:
+                    out.append(m._dev_dist.cpu().numpy())
+            got[form] = out
+        for a, b in zip(got["caffemodel"], got["npz"]):
+            if not np.array_equal(a, b):
+                die(f"phase 18: the {v} .caffemodel and its converted .npz "
+                    f"give different outputs")
+    # (e) the global pattern's CPU twin (gpu_id=-1 moves the drop-in root,
+    # caffe.Net with it, to the CPU)
+    t1 = time.perf_counter()
+    gcpu = global_pattern(-1)
+    twin_s = time.perf_counter() - t1
+    glob_err = float(np.abs(gcard["glob"] - gcpu["glob"]).max())
+    if abs(float(gcard["glob"].sum()) - 1) >= 1e-4 or glob_err > 1e-6:
+        die(f"phase 18: glob_dist_in sums to {gcard['glob'].sum():.6f} and "
+            f"lies {glob_err:.1e} from the CPU twin's (bounds 1e-4, 1e-6)")
+    worst = (0, 0.0, 0.0)
+    for key in ("auto", "pred"):
+        d = np.abs(gcard[key].astype(int) - gcpu[key].astype(int)).max(-1)
+        same = d == 0
+        ab_err = float(np.abs(gcard[f"ab_{key}"] - gcpu[f"ab_{key}"])
+                       .max(0)[same].max())
+        worst = (max(worst[0], int(d.max())),
+                 max(worst[1], float(np.mean(d != 0))), max(worst[2], ab_err))
+    if worst[0] > CAFFE_FRAME_BOUND_LSB or \
+            worst[1] >= CAFFE_FRAME_BOUND_SHARE or worst[2] > CAFFE_AB_BOUND:
+        die(f"phase 18: the global pattern is {worst[0]} LSB on "
+            f"{worst[1]:.2e} of the pixels and ab {worst[2]:.2e} from its "
+            f"CPU twin (CAFFE_* bounds)")
+    if np.array_equal(gcard["auto"], gcard["pred"]):
+        die("phase 18: the reference histogram changed no pixel")
+    # (f) the notebooks' results
+    nb_i = nbs["DemoInteractiveColorization"]
+    nb_g = nbs["DemoGlobalHistogramTransfer"]
+    full = FULLRES_HW + (3,)
+    if (nb_i["img_out"].shape != (S, S, 3)
+            or nb_i["img_out_fullres"].shape != full
+            or nb_i["mask_fullres"].shape != full
+            or not nb_i["mask"].any()
+            or nb_i["colorModel"].device.type != dev.type
+            or nb_g["img_pred_withref_fullres"].shape != (480, 640, 3)
+            or abs(float(nb_g["glob_dist_ref"].sum()) - 1) >= 1e-4
+            or nb_g["cid"].device.type != dev.type):
+        die("phase 18: a notebook's results have the wrong shape or device")
+    # timed, for information: the drop-in click and the API's, in turns
+    t_drop, t_api = [], []
+    for _ in range(DOORS_TIMED):
+        for model, ts in ((drop, t_drop), (direct, t_api)):
+            t1 = time.perf_counter()
+            model.net_forward(ab, mask)
+            ts.append(time.perf_counter() - t1)
+    print(f"phase 18 (deterministic cuDNN, host clock, frame read back): "
+          f"drop-in net_forward p50 {np.percentile(t_drop, 50) * 1e3:.3f} "
+          f"ms, p95 {np.percentile(t_drop, 95) * 1e3:.3f} ms; the API's "
+          f"p50 {np.percentile(t_api, 50) * 1e3:.3f} ms, p95 "
+          f"{np.percentile(t_api, 95) * 1e3:.3f} ms over {DOORS_TIMED} "
+          f"each, in turns; apps.convert teacher.npz -> .pth "
+          f"{convert_s:.2f} s")
+    print(f"phase 18: (a) data.colorize_image and caffe from "
+          f"{COMPAT_DIR}; (b) the drop-in session's {len(aframes)} frames "
+          f"byte-identical to the API's, dense and table clicks within "
+          f"{FRAME_BOUND_LSB} LSB on < {FRAME_BOUND_SHARE}; (c) the "
+          f"converted .pth's frames byte-identical to the .npz's; (d) main, "
+          f"dist and global .caffemodel byte-identical to their converted "
+          f".npz; (e) the global pattern within {worst[0]} LSB on "
+          f"{worst[1]:.2e} of the pixels, ab {worst[2]:.2e}, glob_dist_in "
+          f"within {glob_err:.1e} of its CPU twin ({twin_s:.1f} s), summing "
+          f"to {gcard['glob'].sum():.6f}; (f) both notebooks ran cell by "
+          f"cell on {dev_name}"
+          + (f", {len(plot_calls)} plotting calls recorded by the stand-in"
+             if plot_calls is not None else ""))
+    jax_mods = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "ideepcolor_tpu"))
+    if jax_mods:
+        die(f"phase 18: the child loaded {jax_mods[:5]}")
+    with open(os.path.join(work, "doors.json"), "w") as f:
+        json.dump({"launches": launches}, f)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4752,8 +5112,10 @@ def main() -> int:
     mesh_launches = mesh_phase(entries, dev, sds["global"])
     # 17. the mesh across two processes (no kernel of its own)
     process_mesh_phase(dev)
+    # 18. the reference's doors, in a child process (eleventh path)
+    doors_launches = doors_phase(entries)
 
-    # 18. the kernels line
+    # 19. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -4767,7 +5129,8 @@ def main() -> int:
                          + train_launches[k.name]
                          + frontend_launches[k.name]
                          + host_ops_launches[k.name]
-                         + mesh_launches[k.name]),
+                         + mesh_launches[k.name]
+                         + doors_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
@@ -4777,9 +5140,10 @@ def main() -> int:
             "launches_frontends": frontend_launches[k.name],
             "launches_host_ops": host_ops_launches[k.name],
             "launches_mesh": mesh_launches[k.name],
+            "launches_reference_doors": doors_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 19.
+    # 20.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -4787,4 +5151,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--doors-child"]:
+        sys.exit(doors_child(*sys.argv[2:4]))
     sys.exit(main())

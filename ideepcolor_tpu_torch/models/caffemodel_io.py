@@ -169,6 +169,24 @@ def load_caffemodel(path: str, variant: str = "main"
     return convert_to_params(parse_caffemodel(path), variant)
 
 
+def layers_from_state_dict(sd) -> dict[str, list[np.ndarray]]:
+    """The inverse of :func:`convert_to_params`: a ``CaffeColorNet`` state
+    dict -> the blobs of its ``.caffemodel`` layers (a conv's weight and
+    bias; a BatchNorm's mean, variance and a stored scale of 1; a scale
+    layer's one value), for :func:`encode_caffemodel`."""
+    slots = {"weight": 0, "bias": 1, "mean": 0, "var": 1, "scale": 0}
+    blobs: dict[str, dict[int, np.ndarray]] = {}
+    for key, value in sd.items():
+        name, field = key.rsplit(".", 1)
+        blobs.setdefault(name, {})[slots[field]] = \
+            value.detach().cpu().numpy().reshape(value.shape or (1,))
+    layers = {name: [b[i] for i in sorted(b)] for name, b in blobs.items()}
+    for name, layer in layers.items():
+        if name.endswith("norm"):
+            layer.append(np.ones(1, np.float32))
+    return layers
+
+
 # --- tiny encoder (tests + fixture generation) ---
 
 def _varint(v: int) -> bytes:

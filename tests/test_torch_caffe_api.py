@@ -50,20 +50,9 @@ def weight_files(tmp_path_factory):
             continue
         paths["pth"] = str(root / f"{variant}.pth")
         torch.save(sd, paths["pth"])
-        layers = {}
-        for key, value in sd.items():
-            name, field = key.split(".")
-            slot = {"weight": 0, "bias": 1, "mean": 0, "var": 1,
-                    "scale": 0}[field]
-            layers.setdefault(name, [None, None])[slot] = \
-                value.numpy().reshape(value.shape or (1,))
-        for name, blobs in layers.items():
-            layers[name] = [b for b in blobs if b is not None]
-            if name.endswith("norm"):
-                layers[name].append(np.ones(1, np.float32))
         paths["caffemodel"] = str(root / f"{variant}.caffemodel")
         with open(paths["caffemodel"], "wb") as f:
-            f.write(tio.encode_caffemodel(layers))
+            f.write(tio.encode_caffemodel(tio.layers_from_state_dict(sd)))
     return files
 
 
