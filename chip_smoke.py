@@ -28,9 +28,15 @@ or more each; any failure exits non-zero:
    values, at the click frame, the main path's full-res frame (750 wide,
    not a multiple of 4) and 1536x2048, in five plane layouts: contiguous
    planes, stride-3 L with planar ab (L as a channel of a Lab image),
-   stride-2 ab views (the full-res getter), stride-0 zero ab (the
+   stride-2 ab views (a zoom output's channels), stride-0 zero ab (the
    mask and gray getters) and a plane 4 bytes off 16-byte alignment; each
    timed, with the bytes the layout really moves beside the 15 B/px bound.
+   Then the full-res getters' launch shapes, the 256-px buckets 1024x768
+   (of the main path's 1000x750 image) and 1280x768 (of 1100x750), in the
+   getters' layout (contiguous L, the ab of a zoom through zero-padded
+   matrices), and the same layout at the exact sizes: each under the same
+   bar, timed with its plain version, against the bound at the bucket and
+   at the true size.
    Then the dist session's two compose shapes in its own layouts, under
    the same bar: the 512x512 window frame (contiguous L, the two channels
    of a zoom_with_matrices output; timed) and the 1 x K palette (three
@@ -306,11 +312,37 @@ or more each; any failure exits non-zero:
    Printed: the drop-in click's p50 / p95 on the host clock beside the
    API's, in turns in the same child; the converter's seconds for the
    teacher; the phase's wall time;
-19. one JSON line listing each kernel entry with its launches on the ten
-   paths that launch kernels, its error against the plain version, its
-   time, the plain version's, its bound and what sets it, and the shape
-   and plane layout those numbers were measured at;
-20. last line: {"ok": true, "device": {...}}.
+19. the standalone programs, the twelfth path, with launch counts of its
+   own, on phase 5's main session and phase 6's dist session (teacher,
+   Xd=256, the seeded 1000x750 image). Counted: the image load (padded to
+   its 1024x768 bucket and converted by the load program), a dense
+   ``net_forward_fullres``, a table click, the five full-res getters and
+   the async one, ``get_ab_reccs``, ``compute_entropy``, a snap of one and
+   of eight colors, a gamut redraw, then a fresh model loading 1000x750,
+   1000x700, 990x760 (one bucket: each program captured once) and
+   1100x750 (1280x768: once more), a table click and the getters each.
+   K1's batched entry and K2's compose and fused entries must launch.
+   Then each program captured against its eager function on the same
+   inputs (frames <= 1 LSB on < 1e-3 of the pixels, the load's Lab within
+   1e-4, entropy, snap and gamut mask byte for byte, a re-seeded
+   get_ab_reccs byte for byte and both forms within their contract); each
+   program's call timed captured and eager in turns (host-clock p50 / p95,
+   host launches per call); a novel k's suggest program captured ahead
+   (``compile_now``) by a second thread while this one clicks, outside the
+   clicks' lock and then under it (the clicks of a session captured with
+   deterministic cuDNN, each frame byte-equal to a lone run's; click p50 /
+   p95 during each capture), then a third novel k while this thread runs
+   ``suggest_table`` and ``get_ab_reccs`` on the same dist model (they
+   wait on its generator lock while it captures: each palette within its
+   contract, and re-seeded calls after the capture byte-equal to re-seeded
+   calls before it; their p50 / p95 during the capture); the GUI click (press
+   to ``update_result``) with the device snap and with the host snap, in
+   turns;
+20. one JSON line listing each kernel entry with its launches on the
+   eleven paths that launch kernels, its error against the plain version,
+   its time, the plain version's, its bound and what sets it, and the
+   shape and plane layout those numbers were measured at;
+21. last line: {"ok": true, "device": {...}}.
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
@@ -463,6 +495,18 @@ COMPAT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 DOORS_DEADLINE_S = 400
 DOORS_CLICKS = 10
 DOORS_TIMED = 30
+# phase 19, the standalone programs: calls timed per program and form (in
+# turns of half), the image sizes of the bucket check (the first three share
+# the 1024x768 bucket, the fourth is 1280x768), the novel k's captured ahead
+# (outside the clicks' lock, then inside it, then while the same dist model
+# suggests), and the GUI clicks per snap
+PROGRAM_TIMED = 40
+# the images whose buckets phase 4 holds K2 at, in the getters' layout
+GETTER_SIZES = (FULLRES_HW, (1100, 750))
+BUCKET_SIZES = ((1000, 750), (1000, 700), (990, 760), (1100, 750))
+AHEAD_K = (7, 8, 6)
+AHEAD_CLICKS_AFTER = 10      # clicks after the capture ended
+SNAP_GUI_CLICKS = 20
 
 
 def die(msg: str) -> None:
@@ -746,10 +790,11 @@ def server_phase(entries, glob_weights: str) -> dict:
 
     def own_state(m):
         """What a model's full-res frame is made from: the tensors it keeps
-        (full-res L, the kept ab, the matrices; held, not the model) and its
-        net frame (read back: a copy, no kernel)."""
-        return (m._dev_l_fullres, m._dev_output_ab, m._dev_rh, m._dev_rw,
-                m.output_rgb)
+        (the bucket-padded full-res L, the kept ab, the padded matrices;
+        held, not the model), the image's size and its net frame (read
+        back: a copy, no kernel)."""
+        return (m._dev_l_fullres_pad, m._dev_output_ab, m._dev_rh, m._dev_rw,
+                m._fullres_hw, m.output_rgb)
 
     def start(**kw):
         srv = serve.make_server(port=0, size=S, device="cuda",
@@ -859,7 +904,7 @@ def server_phase(entries, glob_weights: str) -> dict:
     # the session's image: full-res Lab and the net-res planes its clicks
     # fed the shared graphs (which keep only weak references to them)
     closed = [weakref.ref(getattr(svc._sessions[sid], k)) for k in
-              ("_dev_lab_fullres", "_dev_l_net", "_dev_l_mc")]
+              ("_dev_lab_fullres_pad", "_dev_l_net", "_dev_l_mc")]
     ok(srv, "session_close", "DELETE", f"/session?id={sid}")
     gc.collect()
     if any(r() is not None for r in closed):
@@ -987,9 +1032,10 @@ def server_phase(entries, glob_weights: str) -> dict:
         last bits between runs) moves it by up to about 0.6 at that pixel,
         which the fusion spreads over the full-res pixels around it and the
         sRGB curve near black turns into a few LSB there."""
-        l_full, out_ab, rh, rw, net = state
+        l_pad, out_ab, rh, rw, (H, W), net = state
         got = decode_image(reply)
-        own = P.fullres_fuse(l_full, out_ab, rh, rw).cpu().numpy()
+        own = P.fullres_fuse_bucketed(l_pad, out_ab, rh,
+                                      rw).cpu().numpy()[:H, :W]
         if not np.array_equal(got, own):
             die(f"{label}: the reply is not its model's own full-res frame")
         worst[label] = frame_check(f"{label}, net frame", net, want_net,
@@ -2187,10 +2233,11 @@ def host_phase(entries, dev) -> dict:
                                min(old[2], p))
         if not r["parked"]:
             die("abq click: output_ab was uploaded before a getter read it")
-        want_full = P.fullres_fuse(
-            m._dev_l_fullres, torch.from_numpy(np.ascontiguousarray(
+        H, W = m._fullres_hw
+        want_full = P.fullres_fuse_bucketed(
+            m._dev_l_fullres_pad, torch.from_numpy(np.ascontiguousarray(
                 r["ab_host"].transpose(1, 2, 0))).to(dev), m._dev_rh,
-            m._dev_rw).cpu().numpy()
+            m._dev_rw).cpu().numpy()[:H, :W]
         if not np.array_equal(r["full_abq"], want_full):
             die("abq click: get_img_fullres does not read the host ab")
         # the host window compose against K2's compose of the same ab
@@ -3409,6 +3456,549 @@ def doors_child(work: str, dev_name: str) -> int:
     return 0
 
 
+def launches_per_call(fn, n: int = 5) -> dict:
+    """What the host puts on the stream per call of ``fn``, by the CUDA
+    runtime's own names (kernel and graph launches, copies, sets), from
+    ``torch.profiler`` over ``n`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key.startswith(
+                ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                 "cudaMemcpy", "cudaMemset")):
+            out[e.key] = out.get(e.key, 0) + e.count / n
+    return out
+
+
+def programs_phase(entries, dev, m, d) -> dict:
+    """Phase 19: the standalone device programs (the image load, the
+    full-res getters, get_ab_reccs, compute_entropy, the gamut snap and
+    mask), on the main path's session ``m`` and the dist session ``d``;
+    the bucket reuse; the suggest program captured ahead of its first call
+    while another thread clicks; the GUI click with either snap. Returns
+    the phase's launches per kernel entry (the twelfth count)."""
+    import threading
+    import torch
+    from ideepcolor_tpu_torch.api import ColorizeImageTorch
+    from ideepcolor_tpu_torch.data import lab_gamut
+    from ideepcolor_tpu_torch.engine import graphs
+    from ideepcolor_tpu_torch.engine import pipeline as P
+    from ideepcolor_tpu_torch.ops import gamut, hints
+    from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
+
+    clicks = session_hints(10)
+    tables = [hints.points_json_to_table(clicks[:i], S)
+              for i in range(len(clicks) + 1)]
+    h, w = clicks[-1]["y"], clicks[-1]["x"]
+    im = image(5, *FULLRES_HW)
+    snap_colors = np.random.default_rng(19).integers(0, 256, (8, 3))
+    ab = np.zeros((2, S, S), np.float32)
+    mask = np.zeros((1, S, S), np.float32)
+    for p in session_hints(6, seed=8):
+        hints.put_point(ab, mask, [min(max(p["y"], 4), S - 5),
+                                   min(max(p["x"], 4), S - 5)], 4, p["ab"])
+
+    def getters(mod):
+        return {"fullres": mod.get_img_fullres(),
+                "input": mod.get_input_img_fullres(),
+                "gray": mod.get_img_gray_fullres(),
+                "mask": mod.get_img_mask_fullres(),
+                "sup": mod.get_sup_fullres()}
+
+    # a. the path, counted: the main session's load and getters, the dist
+    # session's suggestions and entropy, a snap and a gamut redraw, then
+    # the bucket check on a fresh model
+    for k in entries:
+        k.launches = 0
+    t_phase = time.perf_counter()
+    m.load_image_array(im)
+    dense_full = m.net_forward_fullres(ab, mask)
+    dense_two_step = m.get_img_fullres()
+    m.net_forward_table(*tables[-1])
+    out = getters(m)
+    out["async"] = m.get_img_fullres_async()()
+    d.set_image(m.img_rgb)
+    if d.predict_dist_table(*tables[-1]) != 0:
+        die("phase 19: predict_dist_table failed")
+    # the first call captures (its warm-up runs draw numbers); re-seeded
+    # replays after it draw the same ones
+    d.get_ab_reccs(h, w, K=SUGGEST_K)
+    d._generator.manual_seed(19)
+    reccs = d.get_ab_reccs(h, w, K=SUGGEST_K, return_conf=True)
+    d._generator.manual_seed(19)
+    reccs_again = d.get_ab_reccs(h, w, K=SUGGEST_K, return_conf=True)
+    reccs_next = d.get_ab_reccs(h, w, K=SUGGEST_K, return_conf=True)
+    d.compute_entropy()
+    entropy = d.dist_entropy
+    snap = lab_gamut.snap_ab(50.0, snap_colors[0], device=dev)
+    snap_batch = lab_gamut.snap_ab(50.0, snap_colors, device=dev)
+    grid = lab_gamut.abGrid(device=dev)
+    grid_rgb, grid_mask = (a.copy() for a in grid.update_gamut(37.5))
+    fresh = ColorizeImageTorch(Xd=S)
+    fresh.prep_net(path=WEIGHTS)
+    progs = {"load": fresh._load_prog, **fresh._getters}
+    bucket_caps = []
+    for i, (H, W) in enumerate(BUCKET_SIZES):
+        fresh.load_image_array(image(50 + i, H, W))
+        fresh.net_forward_table(*tables[i + 3])
+        for key, f in getters(fresh).items():
+            if f.shape != (H, W, 3) or f.dtype != np.uint8:
+                die(f"phase 19: {key} getter at {H}x{W} gave {f.shape}")
+        bucket_caps.append({k: p.captures for k, p in progs.items()})
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in entries}
+    print(f"phase 19, the standalone programs: "
+          f"{time.perf_counter() - t_phase:.2f} s, launches {launches}")
+    for k in (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB):
+        if launches[k.name] == 0:
+            die(f"phase 19: kernel {k.name} was not launched")
+    if any(c != 1 for c in bucket_caps[2].values()) or \
+            any(c != 2 for c in bucket_caps[3].values()):
+        die(f"phase 19: captures per program after each load: {bucket_caps}")
+    sizes = ", ".join(f"{H}x{W}" for H, W in BUCKET_SIZES)
+    buckets = ", ".join(f"{P.bucket_size(H)}x{P.bucket_size(W)}"
+                        for H, W in BUCKET_SIZES)
+    print(f"bucket reuse: loads of {sizes} (buckets {buckets}), each with a "
+          f"table click and the five getters: captures per program after "
+          f"each load {[c['load'] for c in bucket_caps]} (load), "
+          f"{[c['fullres'] for c in bucket_caps]} (fullres; gray, mask and "
+          f"sup alike: {bucket_caps[3]})")
+
+    # b. captured against eager (after the counts): the eager form is the
+    # same function run eagerly on the same inputs
+    def eager(prog):
+        return lambda *a, **kw: prog.fn(
+            *(x.t if isinstance(x, graphs.Fixed) else x for x in a), **kw)
+
+    checks = []
+    Hb, Wb = m._dev_l_fullres_pad.shape[:2]
+    pad = np.zeros((Hb, Wb, 3), np.uint8)
+    pad[:FULLRES_HW[0], :FULLRES_HW[1]] = im
+    pad_dev = torch.from_numpy(pad).to(dev)
+    lab_e, _ = m._load_prog.fn(pad_dev)
+    lab_c, l_c = m._load_prog(pad_dev)
+    load_err = float((lab_c - lab_e).abs().max())
+    if load_err > 1e-4 or not torch.equal(l_c[..., 0], lab_c[..., 0]):
+        die(f"phase 19: the captured load is {load_err} off the eager one")
+    if not torch.equal(m._dev_lab_fullres_pad, lab_c):
+        die("phase 19: the session's Lab is not the load program's")
+    checks.append(f"load: Lab within {load_err:.1e}")
+    m_ab = m._dev_output_ab
+    in_ab = m._to_dev(m.input_ab.transpose(1, 2, 0))
+    m_mask = m._to_dev(m.input_mask.transpose(1, 2, 0))
+    planes = m._to_dev(np.concatenate([m.input_mask, m.input_ab],
+                                      0).transpose(1, 2, 0))
+    args = {"fullres": (m._dev_l_fullres_pad, m_ab, m._dev_rh, m._dev_rw),
+            "input": (m._dev_l_fullres_pad, in_ab, m._dev_rh, m._dev_rw),
+            "gray": (m._dev_l_fullres_pad,),
+            "mask": (m_mask, m._dev_rh0, m._dev_rw0),
+            "sup": (planes, m._dev_rh0, m._dev_rw0)}
+    H0, W0 = FULLRES_HW
+    for key, a in args.items():
+        prog = m._getters["fullres" if key == "input" else key]
+        want = prog.fn(*a).cpu().numpy()
+        got = prog(*a).cpu().numpy()
+        moved = frame_check(f"phase 19: captured {key} getter vs eager", got,
+                            want, FRAME_BOUND_LSB, FRAME_BOUND_SHARE)
+        frame_check(f"phase 19: the API's {key} getter vs its program",
+                    out[key], got[:H0, :W0], 0, 1e-12)
+        checks.append(f"{key}: {moved:.1e} of the pixels moved")
+    if not (np.array_equal(out["async"], out["fullres"])):
+        die("phase 19: get_img_fullres_async differs from get_img_fullres")
+    frame_check("phase 19: net_forward_fullres against get_img_fullres",
+                dense_full, dense_two_step, 0, 1e-12)
+    centers, conf = reccs
+    if not (np.array_equal(centers, reccs_again[0])
+            and np.array_equal(conf, reccs_again[1])):
+        die("phase 19: a re-seeded captured get_ab_reccs drew other samples")
+    if np.array_equal(centers, reccs_next[0]):
+        die("phase 19: two replays of get_ab_reccs drew the same samples")
+    d._generator.manual_seed(19)
+    e_out = eager(d._suggest_prog)(
+        d._dev_dist, *d._dev_table(np.zeros((0, 4), np.int32),
+                                   np.zeros((0, 2), np.float32), 0, h, w)[3:],
+        d._dev_pts(), d._generator, K=SUGGEST_K, N=25000,
+        map_div=d.dist_map_div).cpu().numpy()
+    for name, c, cf in (("captured", centers, conf),
+                        ("eager", e_out[:, :2], e_out[:, 2])):
+        if (c.shape != (SUGGEST_K, 2) or np.abs(c).max() > 110
+                or abs(float(cf.sum()) - 1) > 1e-5 or (np.diff(cf) > 0).any()):
+            die(f"phase 19: {name} get_ab_reccs breaks its contract: {c}, "
+                f"{cf}")
+    ent_e = P.dist_entropy(d._dev_dist).cpu().numpy()
+    if not np.array_equal(entropy[::4, ::4], ent_e):
+        die("phase 19: the captured entropy is not the eager one")
+    snap_e = gamut.snap_ab(50.0, torch.from_numpy(
+        snap_colors.astype(np.float32)).to(dev)).cpu().numpy()
+    snap_cpu = gamut.snap_ab(50.0, torch.from_numpy(
+        snap_colors.astype(np.float32))).numpy()
+    if not np.array_equal(snap_batch, snap_e.astype(np.uint8)) or \
+            np.abs(snap_e - snap_cpu).max() > 1:
+        die(f"phase 19: the captured snap {snap_batch.tolist()} is not the "
+            f"eager one {snap_e.tolist()} (CPU {snap_cpu.tolist()})")
+    if np.abs(snap.astype(int) - lab_gamut.snap_ab(
+            50.0, snap_colors[0], device="cpu").astype(int)).max() > 1:
+        die("phase 19: one color's captured snap is more than 1 LSB from "
+            "the CPU's")
+    rgb_e, mask_e = gamut.ab_gamut_mask(37.5, device=dev)
+    if not (np.array_equal(grid_rgb, rgb_e.cpu().numpy())
+            and np.array_equal(grid_mask, mask_e.cpu().numpy())):
+        die("phase 19: the captured gamut mask is not the eager one")
+    print(f"captured vs eager (same inputs): {'; '.join(checks)}; "
+          f"get_ab_reccs: a re-seeded replay byte for byte, the next one "
+          f"draws anew, both forms keep the contract (top confidence "
+          f"{conf[0]:.3f} captured, {e_out[0, 2]:.3f} eager); entropy and "
+          f"snap (1 and 8 colors) byte for byte, the snap within "
+          f"{int(np.abs(snap_e - snap_cpu).max())} LSB of the CPU's; gamut "
+          f"mask and colors byte for byte")
+
+    # c. each program's call, captured against eager: host launches per
+    # call and host-clock p50 / p95, in turns
+    # the captured programs, and a switch of every one to its eager form
+    real = {(obj, name): getattr(obj, name) for obj, name in (
+        (m, "_load_prog"), (m, "_getters"), (d, "_suggest_prog"),
+        (d, "_entropy_prog"))}
+    real_gamut = dict(lab_gamut._PROGRAMS)
+
+    def swap(to_eager: bool):
+        for (obj, name), prog in real.items():
+            if isinstance(prog, dict):
+                prog = {k: eager(p) if to_eager else p
+                        for k, p in prog.items()}
+            elif to_eager:
+                prog = eager(prog)
+            setattr(obj, name, prog)
+        for key, prog in real_gamut.items():
+            lab_gamut._PROGRAMS[key] = eager(prog) if to_eager else prog
+
+    def timed(fn, n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    pick = snap_colors[1]
+    grid_l = iter(np.linspace(1.0, 99.0, 10 * PROGRAM_TIMED))
+
+    def redraw():                   # a new L every time: the cache misses
+        return lab_gamut.abGrid(device=dev).update_gamut(float(next(grid_l)))
+
+    calls = {
+        "image load (1000x750)": lambda: m.load_image_array(im),
+        "get_img_fullres": m.get_img_fullres,
+        "get_img_fullres_async": lambda: m.get_img_fullres_async()(),
+        "get_input_img_fullres": m.get_input_img_fullres,
+        "get_img_gray_fullres": m.get_img_gray_fullres,
+        "get_img_mask_fullres": m.get_img_mask_fullres,
+        "get_sup_fullres": m.get_sup_fullres,
+        f"get_ab_reccs (K={SUGGEST_K})": lambda: d.get_ab_reccs(
+            h, w, K=SUGGEST_K, return_conf=True),
+        "compute_entropy": d.compute_entropy,
+        "snap_ab (one pick)": lambda: lab_gamut.snap_ab(50.0, pick,
+                                                        device=dev),
+        "gamut mask redraw": redraw}
+    for name, fn in calls.items():
+        t = {True: [], False: []}
+        row = []
+        for to_eager in (False, True):
+            swap(to_eager)
+            fn()
+            row.append(launches_per_call(fn))
+        for _ in range(2):
+            for to_eager in (False, True):
+                swap(to_eager)
+                t[to_eager] += timed(fn, PROGRAM_TIMED // 2)
+        swap(False)
+        stats = {}
+        for to_eager, label in ((False, "captured"), (True, "eager")):
+            arr = np.array(t[to_eager])
+            stats[label] = (float(np.percentile(arr, 50)),
+                            float(np.percentile(arr, 95)))
+        lc = ", ".join(
+            f"{sum(r.values()):.0f} (" + ", ".join(
+                f"{v:.0f} {k}" for k, v in sorted(r.items())) + ")"
+            for r in row)
+        print(f"program {name}: captured p50 {stats['captured'][0]:.3f} ms, "
+              f"p95 {stats['captured'][1]:.3f} ms; eager p50 "
+              f"{stats['eager'][0]:.3f} ms, p95 {stats['eager'][1]:.3f} ms "
+              f"(host clock, {PROGRAM_TIMED} calls each in turns of "
+              f"{PROGRAM_TIMED // 2}); host launches per call, captured then "
+              f"eager: {lc}")
+
+    # d. a novel k captured ahead (compile_now) while this thread clicks:
+    # first outside the clicks' lock, then inside it (the server before).
+    # The clicks' graphs are captured with cuDNN's deterministic kernels, so
+    # a click's frame is the same bytes at every replay
+    lock = threading.Lock()
+    torch.backends.cudnn.deterministic = True
+    try:
+        cm = ColorizeImageTorch(Xd=S)
+        cm.prep_net(path=WEIGHTS)
+        cm.load_image_array(im)
+        lone = [cm.net_forward_table(*tables[i]).copy()
+                for i in range(1, len(tables))]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    d._stage = cm._stage          # one staging buffer, as in the server
+
+    def click(i):
+        """One table click under the lock, then a millisecond's pause that
+        lets a thread waiting on the lock take it; (start, end, frame
+        equal to the lone run's)."""
+        t0 = time.perf_counter()
+        with lock:
+            f = cm.net_forward_table(*tables[1 + i % 10])
+        t1 = time.perf_counter()
+        time.sleep(1e-3)
+        return t0, t1, np.array_equal(f, lone[i % 10])
+
+    base = [click(i) for i in range(4 * AHEAD_CLICKS_AFTER)]
+    if not all(ok for *_, ok in base):
+        die("phase 19: a click's frame moved between replays")
+    base_ms = [(t1 - t0) * 1e3 for t0, t1, _ in base]
+    ahead = {}
+    for K, under_lock in zip(AHEAD_K, (False, True)):
+        span, errors = {}, []
+
+        def capture():
+            try:
+                span["t0"] = time.perf_counter()
+                if under_lock:
+                    with lock:
+                        d.ensure_suggest_program(K=K, compile_now=True)
+                else:
+                    d.ensure_suggest_program(K=K, compile_now=True)
+            except BaseException as e:      # reported below, then fatal
+                errors.append(repr(e))
+            finally:
+                span["t1"] = time.perf_counter()
+
+        th = threading.Thread(target=capture)
+        rec, after = [], 0
+        t_start = time.perf_counter()
+        th.start()
+        while after < AHEAD_CLICKS_AFTER:
+            rec.append(click(len(rec)))
+            if not th.is_alive():
+                after += 1
+            if time.perf_counter() - t_start > 120:
+                die(f"phase 19: the capture of k={K} ran past 120 s")
+        th.join()
+        if errors:
+            die(f"phase 19: capturing k={K} with compile_now "
+                f"{'under' if under_lock else 'outside'} the clicks' lock "
+                f"failed: {errors[0]}")
+        prog = d.ensure_suggest_program(K, 25000)
+        during = [(t1 - t0) * 1e3 for t0, t1, _ in rec
+                  if t1 > span["t0"] and t0 < span["t1"]]
+        if prog.captures != 1 or not all(ok for *_, ok in rec) or not during:
+            die(f"phase 19: k={K}: {prog.captures} captures, "
+                f"{sum(not ok for *_, ok in rec)} of {len(rec)} frames off "
+                f"the lone run's, {len(during)} clicks during the capture")
+        colors, cconf = d.suggest_table(*tables[-1], h, w, K=K)
+        if (prog.captures != 1 or colors.shape != (K, 3)
+                or abs(float(cconf.sum()) - 1) > 1e-5):
+            die(f"phase 19: the program captured ahead for k={K} was "
+                f"captured again at its call, or its palette is wrong")
+        ahead[under_lock] = (span["t1"] - span["t0"], during)
+    base = np.array(base_ms)
+    line = [f"lone clicks p50 {np.percentile(base, 50):.3f} ms, p95 "
+            f"{np.percentile(base, 95):.3f} ms"]
+    for under_lock, label in ((False, "outside the lock"),
+                              (True, "under the lock (before)")):
+        secs, during = ahead[under_lock]
+        arr = np.array(during)
+        line.append(f"capture {label} {secs * 1e3:.1f} ms, {len(arr)} clicks "
+                    f"during it: p50 {np.percentile(arr, 50):.3f} ms, p95 "
+                    f"{np.percentile(arr, 95):.3f} ms, max {arr.max():.3f} ms")
+    print(f"compile ahead (k={AHEAD_K[0]} outside, k={AHEAD_K[1]} under the "
+          f"clicks' lock; table clicks from this thread, host clock, frames "
+          f"read back, each byte-equal to a lone run's; one capture each, "
+          f"none at the first call): " + "; ".join(line))
+
+    # the same dist model's suggestions while a novel k is captured ahead:
+    # the server's /suggest and session suggest replay graphs that draw from
+    # the generator the capture registers, so they wait on the model's
+    # generator lock meanwhile. Re-seeded calls after the capture must give
+    # the bytes re-seeded calls gave before it
+    def suggest_pair(i, seed=None):
+        """suggest_table, then get_ab_reccs on the map it left, under the
+        clicks' lock; (start, end, colors, conf, centers, cconf)."""
+        t0 = time.perf_counter()
+        with lock:
+            if seed is not None:
+                d._generator.manual_seed(seed)
+            colors, conf = d.suggest_table(*tables[1 + i % 10], h, w,
+                                           K=SUGGEST_K)
+            centers, cconf = d.get_ab_reccs(h, w, K=SUGGEST_K,
+                                            return_conf=True)
+        t1 = time.perf_counter()
+        time.sleep(1e-3)
+        return t0, t1, colors, conf, centers, cconf
+
+    def pair_contract(colors, conf, centers, cconf) -> bool:
+        return (colors.shape == (SUGGEST_K, 3) and colors.dtype == np.uint8
+                and abs(float(conf.sum()) - 1) <= 1e-5
+                and centers.shape == (SUGGEST_K, 2)
+                and np.abs(centers).max() <= 110
+                and abs(float(cconf.sum()) - 1) <= 1e-5
+                and not (np.diff(cconf) > 0).any())
+
+    # captured on the shared stage with cuDNN's deterministic kernels, so
+    # a re-seeded call repeats its forward's bytes too
+    torch.backends.cudnn.deterministic = True
+    try:
+        suggest_pair(9)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    seeded_before = suggest_pair(9, seed=29)[2:]
+    K3 = AHEAD_K[2]
+    span, errors = {}, []
+
+    def capture_k3():
+        try:
+            span["t0"] = time.perf_counter()
+            d.ensure_suggest_program(K=K3, compile_now=True)
+        except BaseException as e:          # reported below, then fatal
+            errors.append(repr(e))
+        finally:
+            span["t1"] = time.perf_counter()
+
+    th = threading.Thread(target=capture_k3)
+    rec, after = [], 0
+    t_start = time.perf_counter()
+    th.start()
+    try:
+        while after < AHEAD_CLICKS_AFTER:
+            rec.append(suggest_pair(len(rec)))
+            if not th.is_alive():
+                after += 1
+            if time.perf_counter() - t_start > 120:
+                die(f"phase 19: the capture of k={K3} ran past 120 s")
+    finally:
+        th.join()
+    if errors:
+        die(f"phase 19: capturing k={K3} with compile_now while the same "
+            f"dist model suggests failed: {errors[0]}")
+    prog = d.ensure_suggest_program(K3, 25000)
+    during = [(t1 - t0) * 1e3 for t0, t1, *_ in rec
+              if t1 > span["t0"] and t0 < span["t1"]]
+    broken = sum(not pair_contract(*r[2:]) for r in rec)
+    seeded_after = suggest_pair(9, seed=29)[2:]
+    same = all(np.array_equal(a, b)
+               for a, b in zip(seeded_before, seeded_after))
+    if prog.captures != 1 or broken or not during or not same:
+        die(f"phase 19: k={K3} captured while the same dist model suggests: "
+            f"{prog.captures} captures, {broken} of {len(rec)} palettes "
+            f"break their contract, {len(during)} calls during the capture, "
+            f"re-seeded calls after it {'equal' if same else 'differ from'} "
+            f"those before it")
+    colors, cconf = d.suggest_table(*tables[-1], h, w, K=K3)
+    if prog.captures != 1 or colors.shape != (K3, 3):
+        die(f"phase 19: the program captured ahead for k={K3} was captured "
+            f"again at its call, or its palette is wrong")
+    arr = np.array(during)
+    print(f"compile ahead beside the same dist model's suggestions (k={K3}, "
+          f"captured in {(span['t1'] - span['t0']) * 1e3:.1f} ms; "
+          f"suggest_table then get_ab_reccs (K={SUGGEST_K}) from this "
+          f"thread, host clock): {len(rec)} pairs, {len(arr)} during the "
+          f"capture: p50 {np.percentile(arr, 50):.3f} ms, p95 "
+          f"{np.percentile(arr, 95):.3f} ms, max {arr.max():.3f} ms (they "
+          f"wait on the model's generator lock); every palette within its "
+          f"contract; re-seeded calls after the capture byte-equal to those "
+          f"before it")
+
+    # e. the GUI click (press to update_result) with the device snap and with
+    # the host snap, in turns, on the click+suggest path
+    try:
+        import PyQt5.QtWidgets as qw
+    except ImportError:
+        sys.path.insert(0, "tests")
+        import _fake_qt
+        _fake_qt.install()
+        qw = None
+    app = None
+    if hasattr(getattr(qw, "QApplication", None), "instance"):
+        # PyQt5 itself (phase 14 leaves the repository's stand-in, which
+        # has no event loop, installed where PyQt5 does not import)
+        os.environ.setdefault("QT_QPA_PLATFORM", "offscreen")
+        app = qw.QApplication.instance() or qw.QApplication([])
+    from PyQt5.QtCore import QPoint, Qt
+    from ideepcolor_tpu_torch.ui import qt_gui
+    from ideepcolor_tpu_torch.utils.imageio import encode_png
+
+    class Event:
+        def __init__(self, x, y):
+            self._pos = QPoint(x, y)
+
+        def pos(self):
+            return self._pos
+
+        def button(self):
+            return Qt.LeftButton
+
+    os.makedirs(os.path.join("build", "programs"), exist_ok=True)
+    img_path = os.path.join("build", "programs", "seeded_1000x750.png")
+    with open(img_path, "wb") as f:
+        f.write(encode_png(im))
+    draw = qt_gui.GUIDraw(cm, dist_model=d, load_size=S, win_size=WIN)
+    shown = []
+    draw.update_result.connect(lambda r: shown.append(time.perf_counter()))
+    draw.init_result(img_path)
+    rng = np.random.default_rng(119)
+    xs = np.linspace(draw.dw + 24, WIN - draw.dw - 24, 5)
+    pts = [(int(x), int(y)) for y in (WIN // 3, 2 * WIN // 3) for x in xs]
+    # the GUI snaps on the host; for its device form the GUI module's
+    # lab_gamut.snap_ab is pointed at the card in turns
+    host_snap = lab_gamut.snap_ab
+
+    def device_snap(input_l, input_rgb, return_type="rgb", device=None):
+        return host_snap(input_l, input_rgb, return_type, device=dev)
+
+    snap_ms = {"cpu": [], "device": []}
+    gui_ms = {"cpu": [], "device": []}
+    for i in range(2 * SNAP_GUI_CLICKS + 2):
+        where = "device" if i % 2 else "cpu"
+        qt_gui.lab_gamut.snap_ab = device_snap if i % 2 else host_snap
+        draw.user_color = tuple(int(v) for v in rng.integers(0, 256, 3))
+        x, y = pts[i % len(pts)]
+        t0 = time.perf_counter()
+        draw.calibrate_color(draw.user_color, QPoint(x, y))
+        t1 = time.perf_counter()
+        n = len(shown)
+        draw.mousePressEvent(Event(x, y))
+        if app is not None:
+            app.processEvents()
+        if len(shown) != n + 1:
+            die("phase 19: a GUI press showed no frame")
+        if i >= 2:                       # the first of each captures
+            snap_ms[where].append((t1 - t0) * 1e3)
+            gui_ms[where].append((shown[-1] - t1) * 1e3)
+    qt_gui.lab_gamut.snap_ab = host_snap
+    gui_line = []
+    for where in ("device", "cpu"):
+        sn, gu = np.array(snap_ms[where]), np.array(gui_ms[where])
+        gui_line.append(f"{where} snap: one snap p50 "
+                        f"{np.percentile(sn, 50):.3f} ms, p95 "
+                        f"{np.percentile(sn, 95):.3f} ms; GUI click p50 "
+                        f"{np.percentile(gu, 50):.3f} ms, p95 "
+                        f"{np.percentile(gu, 95):.3f} ms")
+    print(f"GUI click, press to update_result, {SNAP_GUI_CLICKS} clicks per "
+          f"snap in turns (host clock; a click snaps twice): "
+          + "; ".join(gui_line))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3618,19 +4208,13 @@ def main() -> int:
                   f"{moved / (H * W):.2f} B/px ({moved / ms / 1e9:.3f} TB/s),"
                   f" bound {b_ms:.6f} ms at {nbytes / (H * W):.2f} B/px, "
                   f"share {b_ms / ms:.3f}")
-        # the full-res getter's layout; contiguous planes elsewhere
+        # a zoom output's layout at the full-res size; contiguous elsewhere
         layout = "stride-2 ab" if (H, W) == FULLRES_HW else "contiguous"
         planes = layouts[layout]
         p_ms = device_ms(lambda: k2.lab_to_rgb_u8_plain(*planes))
         e_ms = eager_ms(lambda: k2.lab_to_rgb_u8_hwc(*planes))
         print(f"K2 {H}x{W} {layout}: plain {p_ms:.5f} ms, eager call "
               f"{e_ms:.5f} ms")
-        if (H, W) == FULLRES_HW:
-            b_ms, b_by = bound(15 * H * W, K2_OPS_PER_PIXEL * H * W)
-            report[k2.KERNEL.name] = dict(
-                ms=kernel_ms[layout], plain_ms=p_ms, bound_ms=b_ms,
-                bound_by=b_by, shape=[H, W],
-                layout="L contiguous, stride-2 ab (the full-res getter's)")
 
         # the fused entry, on the click's layout and one scalar-load layout
         ab_worst = 0.0
@@ -3682,6 +4266,54 @@ def main() -> int:
           f"({k2.load_modes(*planes)}): {w} LSB on {s:.2e} of the values; "
           f"kernel {ms:.5f} ms, plain {p_ms:.5f} ms, bound {b_ms:.6f} ms, "
           f"share {b_ms / ms:.3f}")
+    # the full-res getters' shapes: the buckets of the main path's image and
+    # of GETTER_SIZES[1], in the getters' layout (contiguous L, the two
+    # channels of a zoom output through zero-padded matrices as ab), under
+    # the same bar; timed there and at the exact size, against the bound at
+    # the bucket (the work launched) and at the true size
+    for H, W in GETTER_SIZES:
+        Hb, Wb = P.bucket_size(H), P.bucket_size(W)
+        g_rng = np.random.default_rng(H)
+        ab_small = torch.from_numpy(g_rng.uniform(-110, 110, (S, S, 2)).astype(
+            np.float32)).to(dev)
+        timing = {}
+        for Hx, Wx in ((Hb, Wb), (H, W)):
+            lin = lambda n, rows: torch.from_numpy(  # noqa: E731
+                resize.linear_resize_matrix_np(S, n, rows)).to(dev)
+            l_pl = torch.from_numpy(g_rng.uniform(0, 100, (Hx, Wx)).astype(
+                np.float32)).to(dev)
+            abz = resize.zoom_with_matrices(ab_small, lin(H, Hx), lin(W, Wx))
+            pl = (l_pl, abz[..., 0], abz[..., 1])
+            w, s = lsb(k2.lab_to_rgb_u8_hwc(*pl), k2.lab_to_rgb_u8_plain(*pl))
+            if w > K2_BAR[0] or s >= K2_BAR[1]:
+                die(f"K2 at {Hx}x{Wx} for a {H}x{W} image, the getters' "
+                    f"layout: {w} LSB on {s:.2e} of the values")
+            worst = max(worst[0], w), max(worst[1], s)
+            timing[Hx, Wx] = dict(
+                lsb=(w, s), modes=k2.load_modes(*pl),
+                ms=device_ms(lambda: k2.lab_to_rgb_u8_hwc(*pl)),
+                plain_ms=device_ms(lambda: k2.lab_to_rgb_u8_plain(*pl)))
+        pad, ex = timing[Hb, Wb], timing[H, W]
+        b_pad, b_by = bound(15 * Hb * Wb, K2_OPS_PER_PIXEL * Hb * Wb)
+        b_true, _ = bound(15 * H * W, K2_OPS_PER_PIXEL * H * W)
+        print(f"K2 at the bucket {Hb}x{Wb} of a {H}x{W} image (the getters' "
+              f"layout: L contiguous, stride-2 ab of a zoom output, "
+              f"{pad['modes']}): {pad['lsb'][0]} LSB on {pad['lsb'][1]:.2e} "
+              f"of the values; kernel {pad['ms']:.5f} ms, plain "
+              f"{pad['plain_ms']:.5f} ms, {Hb * Wb / (H * W) - 1:.3f} more "
+              f"pixels than the image; at the exact size {ex['lsb'][0]} LSB "
+              f"on {ex['lsb'][1]:.2e}, kernel {ex['ms']:.5f} ms, plain "
+              f"{ex['plain_ms']:.5f} ms; bound {b_pad:.6f} ms at the bucket, "
+              f"{b_true:.6f} ms at the true size ({b_by}), share of the true "
+              f"size's bound {b_true / pad['ms']:.3f} padded, "
+              f"{b_true / ex['ms']:.3f} exact")
+        if (H, W) == FULLRES_HW:
+            report[k2.KERNEL.name] = dict(
+                ms=pad["ms"], plain_ms=pad["plain_ms"], bound_ms=b_pad,
+                bound_by=b_by, bound_true_size_ms=b_true, shape=[Hb, Wb],
+                layout=f"L contiguous, stride-2 ab of a zoom output (the "
+                       f"full-res getter's, at the bucket of the {H}x{W} "
+                       f"image)")
     pal_modes, pal_off, pal_values, pal_worst = set(), 0, 0, 0
     for K in (1, SUGGEST_K, 25):
         for _ in range(64):
@@ -3765,7 +4397,8 @@ def main() -> int:
         report[k.name]["max_abs_err"] = worst[0]
     print(f"K2 compose: max {worst[0]} LSB on {worst[1]:.2e} of the values "
           f"over {len(K2_SIZES)} sizes and {len(layouts)} layouts, the "
-          f"{WIN}x{WIN} window frame and the 1 x K palettes (bar "
+          f"getters' buckets, the {WIN}x{WIN} window frame and the 1 x K "
+          f"palettes (bar "
           f"{K2_BAR[0]} LSB on < {K2_BAR[1]})")
     print("library_ms: null for every K1 and K2 entry: no single PyTorch "
           "call computes either function")
@@ -5114,8 +5747,10 @@ def main() -> int:
     process_mesh_phase(dev)
     # 18. the reference's doors, in a child process (eleventh path)
     doors_launches = doors_phase(entries)
+    # 19. the standalone programs on the main and dist sessions (twelfth)
+    programs_launches = programs_phase(entries, dev, m, dd)
 
-    # 19. the kernels line
+    # 20. the kernels line
     kernels = []
     for k in entries:
         kernels.append({
@@ -5130,7 +5765,8 @@ def main() -> int:
                          + frontend_launches[k.name]
                          + host_ops_launches[k.name]
                          + mesh_launches[k.name]
-                         + doors_launches[k.name]),
+                         + doors_launches[k.name]
+                         + programs_launches[k.name]),
             "launches_main_path": launches[k.name],
             "launches_dist_session": dist_launches[k.name],
             "launches_engines": engine_launches[k.name],
@@ -5141,9 +5777,10 @@ def main() -> int:
             "launches_host_ops": host_ops_launches[k.name],
             "launches_mesh": mesh_launches[k.name],
             "launches_reference_doors": doors_launches[k.name],
+            "launches_programs": programs_launches[k.name],
             **report[k.name], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
-    # 20.
+    # 21.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

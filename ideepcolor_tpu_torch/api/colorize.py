@@ -20,6 +20,14 @@ click) and reads back what it returns. On the CPU the programs are the plain
 functions. ``prep_net(dtype="bfloat16")`` is the serving precision; f32
 parity is the default.
 
+An image is loaded as the JAX package loads it: padded on the host with
+black (Lab (0, 0, 0)) to 256-px buckets (``engine.pipeline.bucket_size``),
+converted to Lab by the load program, and kept padded with the padded
+interpolation matrices. The full-res getters replay their programs on the
+padded planes, so on the card one graph per bucket serves every image size
+in it; each reads the whole padded frame back and crops it on the host.
+``get_ab_reccs`` and ``compute_entropy`` replay their programs too.
+
 The numpy hint mirrors of every table click (``input_ab``, ``input_mask``)
 are rasterized on the host from the click's table by the native host
 runtime (``ops.host``); K1's planes are never read back for them. The
@@ -33,6 +41,7 @@ uint8-quantized ab and compose the net frame on the host
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
@@ -59,7 +68,7 @@ def _to_lab(rgb: torch.Tensor) -> torch.Tensor:
     """(H,W,3) uint8 or float-in-[0,1] RGB -> (H,W,3) Lab."""
     if rgb.dtype == torch.uint8:
         return P.rgb_to_lab_dev_u8(rgb)
-    return cs.rgb_to_lab(rgb.to(torch.float32))
+    return P.rgb_to_lab_dev(rgb)
 
 
 def rgb2lab_transpose(img_rgb, device=None) -> np.ndarray:
@@ -148,6 +157,8 @@ class ColorizeImageBase:
         self._dev_output_ab = None
         self._fullres_hw = None
         self._stage = None
+        self._load_prog = P.make_load_program(self.device)
+        self._getters = P.make_getter_programs(self.device)
 
     def _to_dev(self, arr, dtype=None) -> torch.Tensor:
         """A numpy array (copied up) or a tensor (moved if it lies
@@ -200,9 +211,8 @@ class ColorizeImageBase:
         im = np.asarray(im_rgb)
         if im.ndim != 3 or im.shape[-1] != 3:
             raise ValueError(f"expected (H,W,3) RGB image, got {im.shape}")
-        src = self._to_dev(im)
         self.img_rgb_fullres = im.copy()
-        self._set_img_lab_fullres_(src)
+        src = self._set_img_lab_fullres_(im)
         small = resize_u8_half_pixel(src, (self.Xd, self.Xd))
         self.img_rgb = small.cpu().numpy()
         self.img_l_set = True
@@ -218,9 +228,8 @@ class ColorizeImageBase:
                 f"set_image expects a net-sized ({self.Xd},{self.Xd},3) "
                 f"image, got {shape}; use load_image_array for "
                 f"arbitrary sizes")
-        src = self._to_dev(np.asarray(input_image))
         self.img_rgb_fullres = np.asarray(input_image).copy()
-        self._set_img_lab_fullres_(src)
+        src = self._set_img_lab_fullres_(self.img_rgb_fullres)
         self.img_l_set = True
         self.img_rgb = np.asarray(input_image)
         self._set_img_lab_(src)
@@ -395,12 +404,13 @@ class ColorizeImageBase:
         if self._set_hint_mirrors(boxes, values, count) == -1:
             return -1
         *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
-        rgb, out_ab, win, colors, _hints = click(
-            self._dev_l_net, self._dev_l_mc,
-            *self._dev_window(l_win_pad, rh, rw), *table,
-            dist_dev, h_dev, w_dev, dist_model._dev_pts(), prev,
-            dist_model._generator, K=int(K), N=int(N),
-            map_div=dist_model.dist_map_div)
+        with dist_model._generator_lock:
+            rgb, out_ab, win, colors, _hints = click(
+                self._dev_l_net, self._dev_l_mc,
+                *self._dev_window(l_win_pad, rh, rw), *table,
+                dist_dev, h_dev, w_dev, dist_model._dev_pts(), prev,
+                dist_model._generator, K=int(K), N=int(N),
+                map_div=dist_model.dist_map_div)
         self._set_outputs(rgb, out_ab)
         return win.cpu().numpy(), colors.cpu().numpy()
 
@@ -455,10 +465,11 @@ class ColorizeImageBase:
         if self._set_hint_mirrors(boxes, values, count) == -1:
             return -1
         *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
-        packed, out_ab, _hints = click(
-            self._dev_l_net, self._dev_l_mc, *table, dist_dev, h_dev, w_dev,
-            dist_model._dev_pts(), prev, dist_model._generator, K=int(K),
-            N=int(N), map_div=dist_model.dist_map_div)
+        with dist_model._generator_lock:
+            packed, out_ab, _hints = click(
+                self._dev_l_net, self._dev_l_mc, *table, dist_dev, h_dev,
+                w_dev, dist_model._dev_pts(), prev, dist_model._generator,
+                K=int(K), N=int(N), map_div=dist_model.dist_map_div)
         self._dev_output_ab = self._keep(out_ab)
         packed_np = packed.cpu().numpy()
         rgb_np = packed_np[:self.Xd]
@@ -525,28 +536,34 @@ class ColorizeImageBase:
         return self._frame(l, z, z)
 
     def get_img_gray_fullres(self):
-        l = self._dev_l_fullres[..., 0]
-        z = P.zeros_plane(l)
-        return self._frame(l, z, z)
+        return self._crop(self._getters["gray"](self._dev_l_fullres_pad))
 
     def get_img_fullres(self):
-        return self._fullres_from_ab(self._dev_output_ab)
+        return self._crop(self._fullres_pad(self._dev_output_ab))
 
     def get_img_fullres_async(self):
         """Dispatch the full-res fusion, start the copy to the host and
         return a function without arguments that blocks for the frame (see
-        ``net_forward_fullres_async``)."""
-        return graphs.read_async(P.fullres_fuse(
-            self._dev_l_fullres, self._dev_output_ab, self._dev_rh,
-            self._dev_rw))
+        ``net_forward_fullres_async``). The copy takes the whole padded
+        frame, which the function crops on the host."""
+        H, W = self._fullres_hw
+        finish = graphs.read_async(self._fullres_pad(self._dev_output_ab))
+        return lambda: finish()[:H, :W]
 
-    def _fullres_from_ab(self, ab_dev: torch.Tensor) -> np.ndarray:
-        return P.fullres_fuse(self._dev_l_fullres, ab_dev, self._dev_rh,
-                              self._dev_rw).cpu().numpy()
+    def _fullres_pad(self, ab_dev: torch.Tensor) -> torch.Tensor:
+        """The padded full-res frame of (Xd,Xd,2) ab: the program's own
+        buffer on the card, valid until its next replay."""
+        return self._getters["fullres"](self._dev_l_fullres_pad, ab_dev,
+                                        self._dev_rh, self._dev_rw)
+
+    def _crop(self, frame: torch.Tensor) -> np.ndarray:
+        """A padded full-res frame read back whole, cropped to the image."""
+        H, W = self._fullres_hw
+        return frame.cpu().numpy()[:H, :W]
 
     def get_input_img_fullres(self):
-        return self._fullres_from_ab(
-            self._to_dev(self.input_ab.transpose(1, 2, 0)))
+        return self._crop(self._fullres_pad(
+            self._to_dev(self.input_ab.transpose(1, 2, 0))))
 
     def get_input_img(self):
         ab = self._to_dev(self.input_ab)
@@ -558,9 +575,9 @@ class ColorizeImageBase:
         return self._frame(l, z, z)
 
     def get_img_mask_fullres(self):
-        return P.mask_fullres(
+        return self._crop(self._getters["mask"](
             self._to_dev(self.input_mask.transpose(1, 2, 0)),
-            self._dev_rh0, self._dev_rw0).cpu().numpy()
+            self._dev_rh0, self._dev_rw0))
 
     def get_sup_img(self):
         l = self._to_dev(50 * self.input_mask, torch.float32)[0]
@@ -570,34 +587,45 @@ class ColorizeImageBase:
     def get_sup_fullres(self):
         planes = self._to_dev(np.concatenate(
             [self.input_mask, self.input_ab], 0).transpose(1, 2, 0))
-        return P.sup_fullres(planes, self._dev_rh0,
-                             self._dev_rw0).cpu().numpy()
+        return self._crop(self._getters["sup"](planes, self._dev_rh0,
+                                               self._dev_rw0))
 
     # ----- private -----
-    def _set_img_lab_fullres_(self, src: torch.Tensor):
-        """Full-res Lab on the device, plus the exact-size interpolation
-        matrices of the full-res getters. An image past Xfullres_max is
-        first shrunk by align-corners bilinear, as the JAX package does."""
-        H, W = src.shape[:2]
+    def _set_img_lab_fullres_(self, im: np.ndarray) -> torch.Tensor:
+        """Full-res Lab on the device, padded to the bucket, and the padded
+        interpolation matrices of the full-res getters. An image past
+        Xfullres_max is first shrunk by align-corners bilinear, as the JAX
+        package does. The frame is padded on the host with black, Lab
+        (0, 0, 0), the zero padding the bucketed getters expect, uploaded
+        once and converted by the load program. Returns the uploaded
+        source at its own size (before any shrink), for the net-size
+        resize."""
+        H, W = im.shape[:2]
+        src = None
         if H > self.Xfullres_max or W > self.Xfullres_max:
+            src = self._to_dev(im)
             zf = self.Xfullres_max / max(H, W)
             H, W = int(round(H * zf)), int(round(W * zf))
-            src = zoom_with_matrices(
+            im = zoom_with_matrices(
                 src, self._to_dev(linear_resize_matrix_np(src.shape[0], H)),
                 self._to_dev(linear_resize_matrix_np(src.shape[1], W))
-            ).to(src.dtype)
-            self.img_rgb_fullres = src.cpu().numpy()
-        lab = _to_lab(src)
+            ).to(src.dtype).cpu().numpy()
+            self.img_rgb_fullres = im
+        Hb, Wb = P.bucket_size(H), P.bucket_size(W)
+        pad = np.zeros((Hb, Wb, 3), im.dtype)
+        pad[:H, :W] = im
+        dev_pad = self._to_dev(pad)
+        lab, l = self._load_prog(dev_pad)
         self._fullres_hw = (H, W)
-        self._dev_lab_fullres = lab
-        # contiguous, so K2 reads 4 B/px of L, not a stride-3 channel
-        self._dev_l_fullres = lab[..., :1].contiguous()
+        self._dev_lab_fullres_pad = self._keep(lab)
+        self._dev_l_fullres_pad = self._keep(l)          # (Hb, Wb, 1)
         self._lab_fullres_np = None
         Xd = self.Xd
-        self._dev_rh = self._to_dev(linear_resize_matrix_np(Xd, H))
-        self._dev_rw = self._to_dev(linear_resize_matrix_np(Xd, W))
-        self._dev_rh0 = self._to_dev(nearest_resize_matrix_np(Xd, H))
-        self._dev_rw0 = self._to_dev(nearest_resize_matrix_np(Xd, W))
+        self._dev_rh = self._to_dev(linear_resize_matrix_np(Xd, H, Hb))
+        self._dev_rw = self._to_dev(linear_resize_matrix_np(Xd, W, Wb))
+        self._dev_rh0 = self._to_dev(nearest_resize_matrix_np(Xd, H, Hb))
+        self._dev_rw0 = self._to_dev(nearest_resize_matrix_np(Xd, W, Wb))
+        return dev_pad[:H, :W] if src is None else src
 
     def _set_img_lab_(self, src: torch.Tensor):
         lab = _to_lab(src)
@@ -630,8 +658,9 @@ class ColorizeImageBase:
             raise RuntimeError(
                 "no image loaded (call load_image/set_image first)")
         if self._lab_fullres_np is None:
-            self._lab_fullres_np = (self._dev_lab_fullres.permute(2, 0, 1)
-                                    .cpu().numpy())
+            H, W = self._fullres_hw
+            self._lab_fullres_np = (self._dev_lab_fullres_pad.cpu().numpy()
+                                    [:H, :W].transpose(2, 0, 1))
         return self._lab_fullres_np
 
     @property
@@ -837,6 +866,13 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self._dev_dist = None
         self._dist_np = None
+        self._suggest_prog = P.make_suggest_program(self.device)
+        self._entropy_prog = P.make_entropy_program(self.device)
+        # one user of the generator at a time: a capture (compile_now runs
+        # outside a server's device lock, in the request's thread) marks the
+        # generator as capturing, and a replay of any graph that draws from
+        # it raises meanwhile
+        self._generator_lock = threading.Lock()
 
     def prep_net(self, gpu_id=None, path='', dist=True, S=.2, dtype=None):
         super().prep_net(gpu_id, path, dist=True, dtype=dtype)
@@ -867,15 +903,15 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         self._set_dist(self._keep(dist_map))
         return 0
 
-    def ensure_suggest_program(self, K=9, N=25000):
+    def ensure_suggest_program(self, K=9, N=25000, compile_now=False):
         """The suggest program for a validated (K, N). Raises ValueError on
         out-of-range values (a server maps it to HTTP 400). The cache holds
         at most ``_SUGGEST_CACHE_MAX`` programs, FIFO, as the JAX class's.
 
-        The JAX class can also compile a program ahead of its first call
-        from shape structs alone (``compile_now``); a CUDA graph is captured
-        from a real run on real buffers, so the port captures at the first
-        call and has no such option."""
+        With ``compile_now`` the program's graph is captured now
+        (:meth:`_aot_compile_suggest`), not at its first call, so a server
+        can capture a novel (K, N) outside its device lock while other
+        threads' clicks go on. On the CPU it captures nothing."""
         K, N = int(K), int(N)
         if not 1 <= K <= self.MAX_SUGGEST_K:
             raise ValueError(
@@ -892,7 +928,33 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
                 P.make_table_suggest_program(
                     self._dist_fwd_tbl, self.Xd, K=K, N=N,
                     map_div=self.dist_map_div, device=self.device)
+        if compile_now:
+            self._aot_compile_suggest(prog)
         return prog
+
+    def _aot_compile_suggest(self, prog) -> None:
+        """Capture ``prog``'s graph ahead of its first call, from
+        placeholder buffers of the call's real shapes: zero (Xd, Xd, 1) L
+        planes, this model's ``graphs.TableStage`` views (the addresses the
+        calls will read), its ``pts_in_hull`` and its generator (the
+        capture's warm-up runs draw from it). The capture runs on a stream
+        of its own and leaves the default stream alone. On the CPU a
+        program is a plain function and nothing is captured."""
+        if not isinstance(prog, graphs.GraphProgram):
+            return
+        stream = torch.cuda.Stream(self.device)
+        with self._generator_lock, torch.cuda.stream(stream):
+            st = self._stage
+            if st is None:
+                st = self._stage = graphs.TableStage(self.device)
+            plane = torch.zeros((self.Xd, self.Xd, 1), dtype=torch.float32,
+                                device=self.device)
+            prog.prepare(plane, plane, st.boxes, st.values, st.count, st.h,
+                         st.w, self._dev_pts(), self._generator)
+        # a staging buffer or pts_in_hull made here was written on that
+        # stream, which no other stream waits for: finish it before a call
+        # on another stream reads them (this thread waits, no other does)
+        stream.synchronize()
 
     def suggest_table(self, boxes, values, count, h, w, K=9, N=25000):
         """Serving suggest: hint-table dist forward + CMF sampling +
@@ -906,10 +968,11 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         prog = self.ensure_suggest_program(K, N)
         if self._set_hint_mirrors(boxes, values, count) == -1:
             return -1
-        dist_map, colors, conf, _hints = prog(
-            self._dev_l_net, self._dev_l_mc,
-            *self._dev_table(boxes, values, count, h, w),
-            self._dev_pts(), self._generator)
+        table = self._dev_table(boxes, values, count, h, w)
+        with self._generator_lock:
+            dist_map, colors, conf, _hints = prog(
+                self._dev_l_net, self._dev_l_mc, *table, self._dev_pts(),
+                self._generator)
         self._set_dist(self._keep(dist_map))
         return colors.cpu().numpy(), conf.cpu().numpy()
 
@@ -939,18 +1002,28 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         return self.dist_ab_full.reshape((self.A, self.B, self.Xd, self.Xd))
 
     def get_ab_reccs(self, h, w, K=5, N=25000, return_conf=False):
+        """K color suggestions at net pixel (h, w): the suggest program on
+        the map's pixel (h // dist_map_div, w // dist_map_div; the SIGGRAPH
+        map is at Xd/4, so that is its nearest-x4 lookup). The pixel
+        travels through the model's ``graphs.TableStage``, so one graph per
+        (K, N) serves every pixel; centers and confidences come back in one
+        readback."""
         if not self.dist_ab_set:
             print('Need to set prediction first')
             return 0
-        # the device map is at Xd/4; nearest-x4 lookup == (h//4, w//4)
-        centers, conf = P.suggest_at(self._dev_dist, int(h) // 4,
-                                     int(w) // 4, self._dev_pts(),
-                                     self._generator, K=K, N=N)
-        centers, conf = centers.cpu().numpy(), conf.cpu().numpy()
+        *_, h_dev, w_dev = self._dev_table(
+            np.zeros((0, 4), np.int32), np.zeros((0, 2), np.float32), 0,
+            h, w)
+        with self._generator_lock:
+            out = self._suggest_prog(
+                self._dev_dist, h_dev, w_dev, self._dev_pts(),
+                self._generator, K=int(K), N=int(N),
+                map_div=self.dist_map_div).cpu().numpy()
+        centers, conf = out[:, :2], out[:, 2]
         return (centers, conf) if return_conf else centers
 
     def compute_entropy(self):
-        lo = P.dist_entropy(self._dev_dist).cpu().numpy()
+        lo = self._entropy_prog(self._dev_dist).cpu().numpy()
         self.dist_entropy = lo.repeat(4, axis=0).repeat(4, axis=1)
 
     def plot_dist_grid(self, h, w):
@@ -1136,6 +1209,9 @@ class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
         self._dev_dist = None
         self._dist_np = None
         self._dist_full_np = None
+        self._suggest_prog = P.make_suggest_program(self.device)
+        self._entropy_prog = P.make_entropy_program(self.device)
+        self._generator_lock = threading.Lock()
 
     def prep_net(self, gpu_id=None, prototxt_path='', caffemodel_path='',
                  S=.2, dtype=None):
@@ -1184,6 +1260,8 @@ class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
     predict_dist_table = ColorizeImageTorchDist.predict_dist_table
     suggest_table = ColorizeImageTorchDist.suggest_table
     ensure_suggest_program = ColorizeImageTorchDist.ensure_suggest_program
+    _aot_compile_suggest = ColorizeImageTorchDist._aot_compile_suggest
+    get_ab_reccs = ColorizeImageTorchDist.get_ab_reccs
     MAX_SUGGEST_K = ColorizeImageTorchDist.MAX_SUGGEST_K
     MAX_SUGGEST_N = ColorizeImageTorchDist.MAX_SUGGEST_N
     _SUGGEST_CACHE_MAX = ColorizeImageTorchDist._SUGGEST_CACHE_MAX
@@ -1211,18 +1289,8 @@ class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
     def dist_ab_grid(self):
         return self.dist_ab_full.reshape((self.A, self.B, self.Xd, self.Xd))
 
-    def get_ab_reccs(self, h, w, K=5, N=25000, return_conf=False):
-        if not self.dist_ab_set:
-            print('Need to set prediction first')
-            return 0
-        centers, conf = P.suggest_at(self._dev_dist, int(h), int(w),
-                                     self._dev_pts(), self._generator,
-                                     K=K, N=N)
-        centers, conf = centers.cpu().numpy(), conf.cpu().numpy()
-        return (centers, conf) if return_conf else centers
-
     def compute_entropy(self):
-        self.dist_entropy = P.dist_entropy(self._dev_dist).cpu().numpy()
+        self.dist_entropy = self._entropy_prog(self._dev_dist).cpu().numpy()
 
 
 # Drop-in aliases: reference-style code instantiates these names.

@@ -479,6 +479,11 @@ class ColorizeService:
         table = points_json_to_table(hints, self.size)  # validates; None
         self._check_k(k)                                # on overflow
         dist = self._ensure_dist()
+        if table is not None:
+            # a novel k is a graph of the whole dist forward and chain:
+            # capture it here, outside the device lock, so queued clicks
+            # go on meanwhile
+            dist.ensure_suggest_program(K=k, compile_now=True)
         with self.lock, self.timer.stage("suggest"):
             self.requests += 1
             dist.load_image_array(rgb)
@@ -501,8 +506,9 @@ class ColorizeService:
 
     def _ensure_dist(self):
         # own lock, not the device lock: the model is built without
-        # holding the device; its graphs are captured at their first call,
-        # under the device lock
+        # holding the device; its table-suggest graphs are captured ahead,
+        # outside the device lock (ensure_suggest_program), the others at
+        # their first call, under it
         with self._dist_init_lock:
             if self._dist is None:
                 d = api.ColorizeImageTorchDist(Xd=self.size,
@@ -668,7 +674,10 @@ class ColorizeService:
         if table is None:
             raise ValueError("too many hints for the suggestion table")
         self._check_k(k)
-        self._ensure_dist()
+        # capture a novel k's program BEFORE taking the device lock (the
+        # sessions' dist copies share the service dist model's programs
+        # and its TableStage, the addresses the graph is captured on)
+        self._ensure_dist().ensure_suggest_program(K=k, compile_now=True)
         with self.lock, self.timer.stage("session_suggest"):
             self.requests += 1
             m = self._lookup_session(sid)       # lookup under the lock
@@ -811,8 +820,10 @@ class ColorizeService:
     def warmup(self, suggest: bool = False) -> None:
         """Run every serving program once before admitting traffic: on the
         card this captures each click's CUDA graph (the dense and table
-        clicks of each tier, the suggest program at k=9, the global click)
-        and runs each auto-batch bucket once, so no request pays a capture.
+        clicks of each tier, the suggest program at k=9, the global click),
+        the image load and the full-res getter of each tier at the bucket
+        of the server's size, and runs each auto-batch bucket once, so no
+        request at that size pays a capture.
         On the CPU it runs the same endpoints and captures nothing. Safe to
         call on a live server."""
         body = self._gray_png()

@@ -36,12 +36,17 @@ What a graph fixes, and what this module does about it:
 * outputs. A replay overwrites the previous replay's outputs. The program
   returns its own output buffers: the caller copies (``clone``) what it
   keeps past the next call and may read the rest back at once.
+* threads. A capture runs on a stream of its own and neither synchronizes
+  the device nor empties a cache, so one thread may capture a program
+  (``GraphProgram.prepare``, ahead of its first call) while another
+  replays others; the kernel nodes it records are counted per thread.
 
 No fallback: a capture that fails raises; nothing retries eagerly.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 
 import numpy as np
@@ -115,36 +120,55 @@ class GraphProgram:
                 bufs.append(a)           # a generator: held, so its id stays
             last.append((weakref.ref(a), a._version)
                         if isinstance(a, torch.Tensor) else None)
+        # warm-up and capture on a stream of the capture's own, which waits
+        # for the caller's stream once and is waited for once: nothing here
+        # synchronizes the device or empties the allocator's caches (as
+        # ``torch.cuda.graph`` does), so another thread's clicks go on while
+        # a program is captured
         current = torch.cuda.current_stream()
         side = torch.cuda.Stream()
         side.wait_stream(current)
-        with torch.cuda.stream(side):    # kernels build, cuDNN picks, pools fill
-            for _ in range(_WARMUP):
-                self.fn(*bufs, **options)
-        current.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         for a in args:
             if isinstance(a, torch.Generator):
                 graph.register_generator_state(a)
-        before = [(k, k.launches) for k in build.KERNELS]
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = self.fn(*bufs, **options)
-        nodes = []
-        for k, n in before:              # recorded as nodes, not run
-            if k.launches != n:
-                nodes.append((k, k.launches - n))
-                k.launches = n
+        with torch.cuda.stream(side):  # kernels build, cuDNN picks, pools fill
+            for _ in range(_WARMUP):
+                self.fn(*bufs, **options)
+            with build.recording_nodes() as nodes:
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    outs = self.fn(*bufs, **options)
+                except BaseException:
+                    # leave capture mode; the function's error is raised
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        current.wait_stream(side)
         self.captures += 1
-        return _Captured(graph, bufs, last, outs, nodes)
+        return _Captured(graph, bufs, last, outs, list(nodes.items()))
 
-    def __call__(self, *args, **options):
+    def _get(self, args, options) -> _Captured:
         key = (tuple(_signature(a) for a in args),
                tuple(sorted(options.items())))
         cap = self._cache.get(key)
         if cap is None:
+            cap = self._capture(args, options)
             while len(self._cache) >= CACHE_MAX:
                 self._cache.pop(next(iter(self._cache)))
-            cap = self._cache[key] = self._capture(args, options)
+            self._cache[key] = cap
+        return cap
+
+    def prepare(self, *args, **options) -> None:
+        """Capture the graph of this signature now, if it is not held yet,
+        and replay nothing: ``args`` need only have the shapes, types and
+        fixed addresses of the later calls (their values are read by the
+        capture's warm-up runs only)."""
+        self._get(args, options)
+
+    def __call__(self, *args, **options):
+        cap = self._get(args, options)
         for i, a in enumerate(args):
             if not isinstance(a, torch.Tensor):
                 continue
@@ -188,7 +212,9 @@ class TableStage:
         self._np = self._host.numpy()
         self._events: list = [None] * _RING
         self._next = 0
-        dev = self._dev = torch.empty(nb + nv + 16, dtype=torch.uint8,
+        # zeros: a valid table (no live hint, pixel (0, 0)) before the first
+        # put, which a capture ahead of the first click reads in its warm-up
+        dev = self._dev = torch.zeros(nb + nv + 16, dtype=torch.uint8,
                                       device=device)
         scalars = dev[nb + nv:].view(torch.int32)
         self.boxes = Fixed(dev[:nb].view(torch.int32).view(slots, 4))

@@ -14,11 +14,14 @@ requantized ab, the click's second output; the window frame and the uint8
 suggestion palette take K2's compose. The suggestion chain between them
 (``ops.kmeans``) is torch ops, as it is ``jnp`` ops in the JAX package.
 
-The JAX package pads full-res planes to 256-px buckets so one compiled
-program serves many image sizes; the full-res programs here run eagerly and
-compile nothing, so the port builds the interpolation matrices at the exact
-size. The frames are
-the ones the JAX package crops out of its padded buffers.
+The full-res programs work, as the JAX package's do, on planes padded to
+``FULLRES_BUCKET``-px buckets with interpolation matrices padded to the same
+rows (``ops.resize``'s builders with ``n_rows``): a captured graph fixes its
+shapes as an XLA program does, so one graph serves every image size of a
+bucket and the caller crops the padded frame. The image load, the getters,
+``suggest_at`` behind ``get_ab_reccs`` and ``dist_entropy`` have program
+factories of their own (``make_*_program``), so each is one graph launch on
+the card.
 """
 
 from __future__ import annotations
@@ -34,9 +37,28 @@ from ..ops.resize import zoom_with_matrices
 from . import graphs
 
 
+def rgb_to_lab_dev(rgb: torch.Tensor) -> torch.Tensor:
+    """(H,W,3) float RGB in [0,1] -> (H,W,3) Lab."""
+    return cs.rgb_to_lab(rgb.to(torch.float32))
+
+
 def rgb_to_lab_dev_u8(rgb_u8: torch.Tensor) -> torch.Tensor:
     """uint8 (H,W,3) RGB -> Lab, the /255 dequantization on the device."""
     return cs.rgb_to_lab(rgb_u8.to(torch.float32) / 255.0)
+
+
+def make_load_program(device=None):
+    """The image load: ``load(rgb (Hb,Wb,3) uint8 or float in [0,1])``
+    gives ``(lab (Hb,Wb,3), l (Hb,Wb,1))``, the L plane contiguous so K2
+    reads 4 B/px of it. On the card one graph per bucket and source type."""
+
+    @torch.no_grad()
+    def load(rgb):
+        lab = (rgb_to_lab_dev_u8(rgb) if rgb.dtype == torch.uint8
+               else rgb_to_lab_dev(rgb))
+        return lab, lab[..., :1].contiguous()
+
+    return graphs.program(load, device)
 
 
 def center_plane(lab: torch.Tensor, mean: float, norm: float
@@ -51,11 +73,20 @@ def compose_rgb_u8(img_l: torch.Tensor, ab: torch.Tensor) -> torch.Tensor:
     return k2.compose_frame_u8(img_l, ab)
 
 
+FULLRES_BUCKET = 256
+
+
+def bucket_size(n: int) -> int:
+    """``n`` rounded up to a multiple of ``FULLRES_BUCKET``."""
+    return ((n + FULLRES_BUCKET - 1) // FULLRES_BUCKET) * FULLRES_BUCKET
+
+
 def fullres_fuse(l_full: torch.Tensor, ab_small: torch.Tensor,
                  rh: torch.Tensor, rw: torch.Tensor) -> torch.Tensor:
-    """Full-resolution frame (JAX ``fullres_fuse_bucketed``): align-corners
-    bilinear upsample of (h,w,2) ab by rh (H,h) / rw (W,w), fused with the
-    full-res (H,W,1) L by K2."""
+    """Full-resolution frame: align-corners bilinear upsample of (h,w,2) ab
+    by rh (H,h) / rw (W,w), fused with the full-res (H,W,1) L by K2. The
+    same body serves the padded planes (``fullres_fuse_bucketed``) and the
+    GUI's window frame."""
     return compose_rgb_u8(l_full, zoom_with_matrices(ab_small, rh, rw))
 
 
@@ -66,10 +97,18 @@ def zeros_plane(ref: torch.Tensor) -> torch.Tensor:
                        device=ref.device).expand(ref.shape[:2])
 
 
+def gray_fullres(l_full: torch.Tensor) -> torch.Tensor:
+    """The (H,W,1) L plane as a gray uint8 frame (zero ab) by K2."""
+    l = l_full[..., 0]
+    zero = zeros_plane(l)
+    return k2.lab_to_rgb_u8_hwc(l, zero, zero)
+
+
 def mask_fullres(mask: torch.Tensor, rh0: torch.Tensor,
                  rw0: torch.Tensor) -> torch.Tensor:
-    """Full-res mask frame (JAX ``mask_fullres_bucketed``): nearest-upsample
-    the (h,w,1) mask with 0/1 matrices, render 100 * (1 - mask) as L."""
+    """Full-res mask frame: nearest-upsample the (h,w,1) mask with 0/1
+    matrices (padded rows give mask 0, white), render 100 * (1 - mask) as
+    L."""
     up = zoom_with_matrices(mask, rh0, rw0)
     zero = zeros_plane(up)
     return k2.lab_to_rgb_u8_hwc(100.0 * (1.0 - up[..., 0]), zero, zero)
@@ -77,10 +116,29 @@ def mask_fullres(mask: torch.Tensor, rh0: torch.Tensor,
 
 def sup_fullres(planes: torch.Tensor, rh0: torch.Tensor,
                 rw0: torch.Tensor) -> torch.Tensor:
-    """Full-res hint frame (JAX ``sup_fullres_bucketed``): nearest-upsample
-    (h,w,3) = [mask, ab], render 50 * mask as L with the hint ab."""
+    """Full-res hint frame: nearest-upsample (h,w,3) = [mask, ab], render
+    50 * mask as L with the hint ab."""
     up = zoom_with_matrices(planes, rh0, rw0)
     return compose_rgb_u8(50.0 * up[..., :1], up[..., 1:])
+
+
+# JAX's names for the getters' forms: the same bodies on the padded
+# (Hb,Wb,1) L plane and matrices padded to (Hb,h) / (Wb,w); the caller
+# crops the frame
+fullres_fuse_bucketed = fullres_fuse
+mask_fullres_bucketed = mask_fullres
+sup_fullres_bucketed = sup_fullres
+
+
+def make_getter_programs(device=None) -> dict:
+    """The full-res getters as programs, by name: ``fullres`` (l_pad,
+    ab_small, rh, rw), ``gray`` (l_pad), ``mask`` (mask, rh0, rw0) and
+    ``sup`` (planes, rh0, rw0), each giving the padded uint8 frame. On the
+    card each is one graph per bucket."""
+    fns = {"fullres": fullres_fuse_bucketed, "gray": gray_fullres,
+           "mask": mask_fullres_bucketed, "sup": sup_fullres_bucketed}
+    return {name: graphs.program(torch.no_grad()(fn), device)
+            for name, fn in fns.items()}
 
 
 # ab quantization of the abq click's payload: uint8 over [-110, 110] (the
@@ -188,10 +246,32 @@ def suggest_at(dist_S: torch.Tensor, h, w, centers_tbl: torch.Tensor,
                                  generator, K=K, N=N)
 
 
+def make_suggest_program(device=None):
+    """``get_ab_reccs``'s chain as a program: ``sugg(dist_S, h, w,
+    centers_tbl, generator, K=5, N=25000, map_div=1)`` gives (K,3): the
+    (K,2) centers and the (K,) confidences as a third column, one buffer
+    for one readback. h and w are the pixel in net coordinates, Python ints
+    or the device tensors of a ``graphs.TableStage`` (a graph reads the
+    live pixel); the map's pixel is (h // map_div, w // map_div)."""
+
+    @torch.no_grad()
+    def sugg(dist_S, h, w, centers_tbl, generator, K=5, N=25000, map_div=1):
+        centers, conf = suggest_at(dist_S, h // map_div, w // map_div,
+                                   centers_tbl, generator, K=K, N=N)
+        return torch.cat([centers, conf[:, None]], 1)
+
+    return graphs.program(sugg, device)
+
+
 def dist_entropy(dist: torch.Tensor) -> torch.Tensor:
     """Per-pixel sum p log p over the bin axis (last), in the reference's
     sign convention."""
     return quantize.entropy(dist, axis=-1)
+
+
+def make_entropy_program(device=None):
+    """:func:`dist_entropy` as a program: one graph per map shape."""
+    return graphs.program(torch.no_grad()(dist_entropy), device)
 
 
 def _palette_lab(l_net: torch.Tensor, h, w,

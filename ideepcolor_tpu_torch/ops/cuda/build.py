@@ -15,11 +15,13 @@ import every module of the port. Asking for a kernel there raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -45,9 +47,23 @@ def _nvcc() -> str:
         "run on the CPU by passing CPU tensors / device='cpu'")
 
 
-# every Kernel made, in order: what a CUDA-graph capture looks over to learn
-# which kernel launches it recorded
+# every Kernel made, in order
 KERNELS: list["Kernel"] = []
+
+# the thread's capture in progress: {Kernel: launches recorded as nodes}
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_nodes():
+    """While a CUDA graph is captured in this thread, count each launch as a
+    node of that graph (in the dict yielded, per kernel) and not in
+    ``launches``: another thread's launches meanwhile count as usual."""
+    nodes = _RECORDING.nodes = {}
+    try:
+        yield nodes
+    finally:
+        _RECORDING.nodes = None
 
 
 class Kernel:
@@ -57,9 +73,10 @@ class Kernel:
 
     A launch made while a CUDA graph is being captured runs nothing: it
     becomes a node of the graph, and the kernel runs once each time the graph
-    is replayed. The capture (``engine.graphs``) takes such launches back out
-    of ``launches`` and adds them again at every replay, so the count stays
-    the number of times the kernel was put on the card."""
+    is replayed. Such a launch is counted as a node of the capture
+    (:class:`recording_nodes`), which ``engine.graphs`` adds to ``launches``
+    at every replay, so the count stays the number of times the kernel was
+    put on the card."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes,
                  replaces: str):
@@ -103,7 +120,11 @@ class Kernel:
             msg = self._lib.ideepcolor_error_string(code).decode()
             raise RuntimeError(f"{self.name}: launch failed, CUDA error "
                                f"{code}: {msg}")
-        self.launches += 1
+        nodes = getattr(_RECORDING, "nodes", None)
+        if nodes is None:
+            self.launches += 1
+        else:
+            nodes[self] = nodes.get(self, 0) + 1
 
 
 def build_all(kernels) -> float:

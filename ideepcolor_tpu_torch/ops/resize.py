@@ -28,11 +28,15 @@ import torch
 import torch.nn.functional as F
 
 
-def linear_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) align-corners bilinear interpolation matrix."""
-    m = np.zeros((n_out, n_in), np.float32)
+def linear_resize_matrix_np(n_in: int, n_out: int,
+                            n_rows: int | None = None) -> np.ndarray:
+    """(n_out, n_in) align-corners bilinear interpolation matrix; with
+    ``n_rows``, (n_rows, n_in) whose rows past ``n_out`` are zero: the
+    matrices of the bucketed full-res programs, which serve every output
+    size of a bucket."""
+    m = np.zeros((n_rows or n_out, n_in), np.float32)
     if n_out == 1 or n_in == 1:
-        m[:, 0] = 1.0
+        m[:n_out, 0] = 1.0
         return m
     c = np.arange(n_out) * ((n_in - 1) / (n_out - 1))
     i0 = np.clip(np.floor(c).astype(np.int32), 0, n_in - 1)
@@ -44,12 +48,14 @@ def linear_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
     return m
 
 
-def nearest_resize_matrix_np(n_in: int, n_out: int) -> np.ndarray:
+def nearest_resize_matrix_np(n_in: int, n_out: int,
+                             n_rows: int | None = None) -> np.ndarray:
     """(n_out, n_in) align-corners NEAREST matrix (scipy zoom order=0:
-    round half up)."""
-    m = np.zeros((n_out, n_in), np.float32)
+    round half up); padded with zero rows to ``n_rows`` as
+    :func:`linear_resize_matrix_np`."""
+    m = np.zeros((n_rows or n_out, n_in), np.float32)
     if n_out == 1 or n_in == 1:
-        m[:, 0] = 1.0
+        m[:n_out, 0] = 1.0
         return m
     c = np.arange(n_out) * ((n_in - 1) / (n_out - 1))
     idx = np.clip(np.floor(c + 0.5).astype(np.int32), 0, n_in - 1)

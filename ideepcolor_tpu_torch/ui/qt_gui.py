@@ -238,9 +238,10 @@ class GUIDraw(QWidget):
 
     # ---- color picking / suggestions ----
     def calibrate_color(self, c, pos):
-        # one color, snapped on the host: up to 20 Lab round trips of three
-        # numbers each, which on the card are dozens of launches and a
-        # readback per round trip (a click snaps twice)
+        # one color, snapped on the host CPU: the card's snap is a captured
+        # graph of 20 fixed iterations of about 107 tiny kernels, slower per
+        # pick than the host's loop, which stops when the color converges
+        # (chip_smoke.py phase 19 times both; a click snaps twice)
         x, y = self.scale_point(pos)
         snap = lab_gamut.snap_ab(self.im_lab[y, x, 0],
                                  np.array(c, np.uint8), device="cpu")

@@ -218,18 +218,20 @@ def test_net_forward_table_abq_matches_jax(half, jax_native):
     assert tm._dev_out_ab_val is not None             # uploaded on read
     np.testing.assert_array_equal(
         tm._dev_output_ab.numpy(), tm.output_ab.transpose(1, 2, 0))
-    want_full = tP.fullres_fuse(tm._dev_l_fullres,
-                                torch.from_numpy(np.ascontiguousarray(
-                                    tm.output_ab.transpose(1, 2, 0))),
-                                tm._dev_rh, tm._dev_rw).numpy()
+    H, W = tm._fullres_hw                 # the getters' padded planes
+    want_full = tP.fullres_fuse_bucketed(
+        tm._dev_l_fullres_pad, torch.from_numpy(np.ascontiguousarray(
+            tm.output_ab.transpose(1, 2, 0))),
+        tm._dev_rh, tm._dev_rw).numpy()[:H, :W]
     np.testing.assert_array_equal(full, want_full)
     _agree(full, jm.get_img_fullres(), 1, PAYLOAD_SHARE)
     # a later rgb click replaces the parked ab
     rgb = tm.net_forward_table(*_table(3, 7))
     assert tm._out_ab_host_pending is None
-    np.testing.assert_array_equal(tm.get_img_fullres(), tP.fullres_fuse(
-        tm._dev_l_fullres, tm._dev_output_ab, tm._dev_rh,
-        tm._dev_rw).numpy())
+    np.testing.assert_array_equal(tm.get_img_fullres(),
+                                  tP.fullres_fuse_bucketed(
+        tm._dev_l_fullres_pad, tm._dev_output_ab, tm._dev_rh,
+        tm._dev_rw).numpy()[:H, :W])
     assert rgb.shape == (XD, XD, 3)
 
 

@@ -23,6 +23,7 @@ import sys
 
 import pytest
 
+from ideepcolor_tpu_torch.engine import graphs
 from ideepcolor_tpu_torch.utils.notebook import code_cells
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,9 +38,6 @@ MODULES_WITHOUT_COUNTERPART = {
                      "host has no tunnel to wedge",
 }
 
-BUCKETED = ("the port runs its full-res getters at the exact size: eager "
-            "PyTorch compiles nothing per shape, so there is no bucket "
-            "padding (ROADMAP Queue 3)")
 FUNCTIONAL = ("the port's nets are nn.Modules (SIGGRAPHGenerator, "
               "CaffeColorNet) with methods where the JAX package has "
               "functions over a params dict")
@@ -61,12 +59,6 @@ NAMES_WITHOUT_COUNTERPART = {
                                            "port compiles no programs "
                                            "(its graphs are captured)"},
     "engine.pipeline": {
-        "FULLRES_BUCKET": BUCKETED, "bucket_size": BUCKETED,
-        "fullres_fuse_bucketed": BUCKETED + "; the port's is fullres_fuse",
-        "mask_fullres_bucketed": BUCKETED + "; the port's is mask_fullres",
-        "sup_fullres_bucketed": BUCKETED + "; the port's is sup_fullres",
-        "rgb_to_lab_dev": "a jitted wrapper of ops.colorspace.rgb_to_lab, "
-                          "which the port calls itself",
         "zoom_planes": "the port shrinks an oversized image with "
                        "ops.resize.zoom_with_matrices and the matrix "
                        "builders",
@@ -191,16 +183,22 @@ def test_mesh_forms_exist(diff):
 
 def test_no_ahead_of_time_compile():
     """``_aot_compile_suggest`` and ``ensure_suggest_program(compile_now=)``
-    compile a program from shape structs; a CUDA graph is captured from a
-    real run, so the port has neither (ROADMAP Queue 3)."""
+    exist in both packages; on the CPU the port's programs are plain
+    functions, so ``compile_now`` is accepted, captures nothing ahead of
+    time and returns the plain suggest function."""
     from ideepcolor_tpu.api import colorize as jcolorize
     from ideepcolor_tpu_torch.api import colorize as tcolorize
     for cls in ("ColorizeImageTorchDist", "ColorizeImageCaffeDist"):
-        assert hasattr(getattr(jcolorize, cls), "_aot_compile_suggest")
-        assert not hasattr(getattr(tcolorize, cls), "_aot_compile_suggest")
+        for mod in (jcolorize, tcolorize):
+            assert callable(getattr(getattr(mod, cls),
+                                    "_aot_compile_suggest"))
     m = tcolorize.ColorizeImageTorchDist(Xd=32, device="cpu")
-    with pytest.raises(TypeError):
-        m.ensure_suggest_program(9, 25000, compile_now=True)
+    m.prep_net(path=os.path.join(ROOT, "weights", "student_w025.npz"))
+    prog = m.ensure_suggest_program(9, 25000, compile_now=True)
+    assert not isinstance(prog, graphs.GraphProgram)
+    assert m.ensure_suggest_program(9, 25000) is prog
+    assert m._aot_compile_suggest(prog) is None
+    assert m._stage is None          # no staging buffer: nothing captured
 
 
 # ----- the repository's front doors: every root-level .py, every file of
