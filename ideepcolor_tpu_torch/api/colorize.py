@@ -36,6 +36,12 @@ runtime (``ops.host``); K1's planes are never read back for them. The
 uint8-quantized ab and compose the net frame on the host
 (:func:`compose_net_abq_host`); ``IDEEPCOLOR_NET_CLICK`` chooses between
 ``rgb`` and ``abq[_half]`` where a caller asks (:func:`net_click_mode`).
+
+Under a profiler each click entry is the span ``click``, with the spans
+``click.hints`` (the host's hint mirrors and normalization),
+``click.upload`` (the table or hint planes onto the device) and
+``click.readback`` (the frame read back) inside it
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from ..ops.resize import (cubic_resize_matrix_np, linear_resize_matrix_np,
                           nearest_resize_matrix_np, resize_u8_half_pixel,
                           zoom_with_matrices)
 from ..utils.imageio import read_image
+from ..utils.profiling import annotate, spanned
 
 
 def _to_lab(rgb: torch.Tensor) -> torch.Tensor:
@@ -183,7 +190,8 @@ class ColorizeImageBase:
     @property
     def output_rgb(self):
         if self._output_rgb_np is None and self._dev_output_rgb is not None:
-            self._output_rgb_np = self._dev_output_rgb.cpu().numpy()
+            with annotate("click.readback"):
+                self._output_rgb_np = self._dev_output_rgb.cpu().numpy()
         return self._output_rgb_np
 
     @output_rgb.setter
@@ -247,6 +255,13 @@ class ColorizeImageBase:
         if not self.net_set:
             print('I need to have a net!')
             return -1
+        with annotate("click.hints"):
+            self._set_hints(input_ab, input_mask)
+        return 0
+
+    def _set_hints(self, input_ab, input_mask):
+        """The hint mirrors (``input_ab``, ``input_mask``) and their
+        normalized forms from dense planes; a mis-shaped plane raises."""
         input_ab = np.asarray(input_ab, np.float32)
         input_mask = np.asarray(input_mask, np.float32)
         if input_ab.shape != (2, self.Xd, self.Xd):
@@ -261,8 +276,8 @@ class ColorizeImageBase:
         self.input_ab_mc = (self.input_ab - self.ab_mean) / self.ab_norm
         self.input_mask = input_mask
         self.input_mask_mult = self.input_mask * self.mask_mult
-        return 0
 
+    @spanned("click")
     def net_forward_table(self, boxes, values, count):
         """Interactive path: hint table in, frame out.
 
@@ -276,13 +291,13 @@ class ColorizeImageBase:
         click = getattr(self, "_click_tbl", None)
         if click is None:
             return -1
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         rgb, out_ab, _hints = click(self._dev_l_net, self._dev_l_mc,
                                     *self._dev_table(boxes, values, count))
         self._set_outputs(rgb, out_ab)
         return self.output_rgb
 
+    @spanned("click")
     def net_forward_table_abq(self, boxes, values, count, half=False):
         """The table click whose readback is only the uint8-quantized ab
         prediction ((S,S,2), 2/3 of the frame's bytes; (S/2,S/2,2), 1/6,
@@ -301,8 +316,7 @@ class ColorizeImageBase:
                         else "_click_tbl_abq", None)
         if click is None:
             return -1
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         abq, _hints = click(self._dev_l_mc,
                             *self._dev_table(boxes, values, count))
         rgb = compose_net_abq_host(self._host_l_net(), abq.cpu().numpy(),
@@ -311,6 +325,7 @@ class ColorizeImageBase:
         self._set_out_ab_host_(*host.rgb2lab_u8_ab(rgb))
         return self.output_rgb
 
+    @spanned("click.upload")
     def _dev_table(self, boxes, values, count, h=None, w=None):
         """A click's table (and pixel) as its program takes them. On the
         CPU: tensors and Python ints. On the card: the fixed device views of
@@ -337,21 +352,23 @@ class ColorizeImageBase:
         buffers again on every replay."""
         return t.clone() if self.device.type == "cuda" else t
 
+    @spanned("click.hints")
     def _set_hint_mirrors(self, boxes, values, count):
         """The numpy hint mirrors of a click (``input_ab``, ``input_mask``
         and their normalized forms), rasterized on the host from its table
         by the native host runtime: K1's contract, with nothing read back
-        from the device. -1 on the sentinel failures."""
+        from the device. The callers have checked for an image and a
+        net."""
         ab, mask = host.rasterize_hints(np.asarray(boxes), np.asarray(values),
                                         int(count), self.Xd)
-        return ColorizeImageBase.net_forward(self, ab.transpose(2, 0, 1),
-                                             mask.transpose(2, 0, 1))
+        self._set_hints(ab.transpose(2, 0, 1), mask.transpose(2, 0, 1))
 
     def _set_outputs(self, rgb, out_ab):
         self._dev_output_ab = self._keep(out_ab)
         self.output_rgb = self._keep(rgb)  # stays on the device; lazy numpy
         self._set_out_ab_()
 
+    @spanned("click")
     def net_forward_table_win(self, boxes, values, count, l_win_pad, rh, rw):
         """Table click that returns the window-size display frame.
 
@@ -364,8 +381,7 @@ class ColorizeImageBase:
         click = getattr(self, "_click_tbl_win", None)
         if click is None:
             return -1
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         rgb, out_ab, win, _hints = click(
             self._dev_l_net, self._dev_l_mc,
             *self._dev_window(l_win_pad, rh, rw),
@@ -378,6 +394,7 @@ class ColorizeImageBase:
                 self._to_dev(rh, torch.float32),
                 self._to_dev(rw, torch.float32))
 
+    @spanned("click")
     def net_forward_table_win_suggest(self, boxes, values, count,
                                       l_win_pad, rh, rw, dist_model,
                                       h, w, K=9, N=25000):
@@ -401,8 +418,7 @@ class ColorizeImageBase:
             if self._output_rgb_np is None:
                 return -1
             prev = self._to_dev(self._output_rgb_np)
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
         with dist_model._generator_lock:
             rgb, out_ab, win, colors, _hints = click(
@@ -414,6 +430,7 @@ class ColorizeImageBase:
         self._set_outputs(rgb, out_ab)
         return win.cpu().numpy(), colors.cpu().numpy()
 
+    @spanned("click")
     def net_forward_table_win_host(self, boxes, values, count,
                                    l_win_pad_np, rh_np, rw_np):
         """The table click with the window frame composed on the host.
@@ -441,6 +458,7 @@ class ColorizeImageBase:
             return -1
         return compose_window_host(out, l_win_pad_np, rh_np, rw_np)
 
+    @spanned("click")
     def net_forward_table_suggest_host(self, boxes, values, count,
                                        l_win_pad_np, rh_np, rw_np,
                                        dist_model, h, w, K=9, N=25000):
@@ -462,8 +480,7 @@ class ColorizeImageBase:
             if self._output_rgb_np is None:
                 return -1
             prev = self._to_dev(self._output_rgb_np)
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
         with dist_model._generator_lock:
             packed, out_ab, _hints = click(
@@ -815,12 +832,12 @@ class ColorizeImageTorch(ColorizeImageBase):
                                      dist_lowres=True)
         return reg2[0], dist_cl[0].permute(1, 2, 0).contiguous()
 
+    @spanned("click")
     def net_forward(self, input_ab, input_mask):
         if super().net_forward(input_ab, input_mask) == -1:
             return -1
         if self.dist:
-            ab = self._to_dev(self.input_ab_mc, torch.float32)
-            mask = self._to_dev(self.input_mask_mult, torch.float32)
+            ab, mask = self._dev_hint_planes()
             # The reference's dist backend returns the raw (double-110)
             # regression array and composes no frame. The map stays at
             # Xd/4 on the device (a nearest-x4 lookup is an index mapping).
@@ -830,11 +847,17 @@ class ColorizeImageTorch(ColorizeImageBase):
         self._set_outputs(*self._dispatch_click())
         return self.output_rgb
 
+    @spanned("click.upload")
+    def _dev_hint_planes(self):
+        """The normalized hint ab (2,Xd,Xd) and mask (1,Xd,Xd) on the
+        device."""
+        return (self._to_dev(self.input_ab_mc, torch.float32),
+                self._to_dev(self.input_mask_mult, torch.float32))
+
     def _dispatch_click(self):
         if self.dist:
             return None
-        ab = self._to_dev(self.input_ab_mc, torch.float32)
-        mask = self._to_dev(self.input_mask_mult, torch.float32)
+        ab, mask = self._dev_hint_planes()
         return self._click(
             self._dev_l_net, self._dev_l_mc.permute(2, 0, 1)[None],
             ab[None], mask[None])
@@ -896,8 +919,7 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         does."""
         if not (self.img_l_set and self.net_set):
             return -1
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         dist_map, _hints = self._predict_tbl(
             self._dev_l_mc, *self._dev_table(boxes, values, count))
         self._set_dist(self._keep(dist_map))
@@ -966,8 +988,7 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         if not (self.img_l_set and self.net_set):
             return -1
         prog = self.ensure_suggest_program(K, N)
-        if self._set_hint_mirrors(boxes, values, count) == -1:
-            return -1
+        self._set_hint_mirrors(boxes, values, count)
         table = self._dev_table(boxes, values, count, h, w)
         with self._generator_lock:
             dist_map, colors, conf, _hints = prog(
@@ -1105,6 +1126,7 @@ class ColorizeImageTorchCaffe(ColorizeImageBase):
         self._click_tbl_abq_half = P.make_table_click_abq_program(
             fwd_tbl, self.Xd, half=True, device=dev)
 
+    @spanned("click.upload")
     def _hints3(self) -> torch.Tensor:
         """(1,3,Xd,Xd) on the device: the normalized hint ab and the mask
         times ``mask_mult``, the three hint channels of the blob."""
@@ -1114,6 +1136,7 @@ class ColorizeImageTorchCaffe(ColorizeImageBase):
     def _l_mc4(self) -> torch.Tensor:
         return self._dev_l_mc.permute(2, 0, 1)[None]
 
+    @spanned("click")
     def net_forward(self, input_ab, input_mask):
         if super().net_forward(input_ab, input_mask) == -1:
             return -1
@@ -1246,6 +1269,7 @@ class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
         self._dist_np = None          # the numpy mirrors are lazy
         self._dist_full_np = None
 
+    @spanned("click")
     def net_forward(self, input_ab, input_mask):
         if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
             return -1

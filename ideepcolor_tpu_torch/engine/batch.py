@@ -27,6 +27,11 @@ mesh across processes, before any work: another rank's chunks cannot come
 back to this host (the JAX forms fail at ``np.asarray`` there).
 :func:`make_sharded_batch_forward` and :func:`make_sharded_table_forward`
 run this rank's chunks of such a mesh.
+
+Under a profiler :func:`colorize_batch_table` and :func:`colorize_batch`
+are each the span ``batch``, with ``batch.upload`` (the images and hints
+onto the device; twice in the table form) and ``batch.readback`` (the
+frames back) inside it (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from ..ops.cuda import hints_kernel as k1
 from ..ops.quantize import make_pts_grid
 from ..ops.resize import linear_resize_matrix_np
 from ..parallel import mesh as pmesh
+from ..utils.profiling import annotate, spanned
 from . import pipeline as P
 
 
@@ -266,6 +272,7 @@ def _on_mesh(sharded_for, mesh, net, batch_args, *rest, **kw):
     return n, fn(net, *_placer(batch_s)(*batch_args), *rest, **kw)
 
 
+@spanned("batch")
 def colorize_batch_table(weights, images_rgb, boxes, values, counts,
                          maskcent: float = 0.0, mesh=None,
                          device=None) -> np.ndarray:
@@ -275,18 +282,27 @@ def colorize_batch_table(weights, images_rgb, boxes, values, counts,
     mesh (padded to its alignment, the padding dropped on return)."""
     dev = _device_for(mesh, device)
     net = as_module(weights, dev)
-    args = (_prep_l_mc(_images(images_rgb, dev)),
-            torch.as_tensor(np.asarray(boxes, np.int32), device=dev),
-            torch.as_tensor(np.asarray(values, np.float32), device=dev),
-            torch.as_tensor(np.asarray(counts, np.int32), device=dev))
+    # two upload spans, so that the L plane's kernels stay queued between
+    # the image's upload and the tables', as without spans
+    with annotate("batch.upload"):
+        imgs = _images(images_rgb, dev)
+    l_mc = _prep_l_mc(imgs)
+    with annotate("batch.upload"):
+        args = (l_mc,
+                torch.as_tensor(np.asarray(boxes, np.int32), device=dev),
+                torch.as_tensor(np.asarray(values, np.float32), device=dev),
+                torch.as_tensor(np.asarray(counts, np.int32), device=dev))
     if mesh is not None:
         n, (rgb, _ab) = _on_mesh(_sharded_table_forward_for, mesh, net,
                                  args, float(maskcent))
-        return rgb.numpy()[:n]
+        with annotate("batch.readback"):
+            return rgb.numpy()[:n]
     rgb, _ab = batch_forward_frames_table(net, *args, float(maskcent))
-    return rgb.cpu().numpy()
+    with annotate("batch.readback"):
+        return rgb.cpu().numpy()
 
 
+@spanned("batch")
 def colorize_batch(weights, images_rgb, hint_ab=None, hint_mask=None,
                    maskcent: float = 0.0, mesh=None,
                    device=None) -> np.ndarray:
@@ -300,20 +316,25 @@ def colorize_batch(weights, images_rgb, hint_ab=None, hint_mask=None,
     """
     dev = _device_for(mesh, device)
     net = as_module(weights, dev)
-    imgs = _images(images_rgb, dev)
-    n, s = imgs.shape[0], imgs.shape[1]
-    hint_ab = (torch.zeros((n, s, s, 2), device=dev) if hint_ab is None else
-               torch.as_tensor(np.asarray(hint_ab, np.float32), device=dev))
-    hint_mask = (torch.zeros((n, s, s, 1), device=dev) if hint_mask is None
-                 else torch.as_tensor(np.asarray(hint_mask, np.float32),
-                                      device=dev))
+    with annotate("batch.upload"):
+        imgs = _images(images_rgb, dev)
+        n, s = imgs.shape[0], imgs.shape[1]
+        hint_ab = (torch.zeros((n, s, s, 2), device=dev) if hint_ab is None
+                   else torch.as_tensor(np.asarray(hint_ab, np.float32),
+                                        device=dev))
+        hint_mask = (torch.zeros((n, s, s, 1), device=dev)
+                     if hint_mask is None
+                     else torch.as_tensor(np.asarray(hint_mask, np.float32),
+                                          device=dev))
     args = (_prep_l_mc(imgs), hint_ab, hint_mask)
     if mesh is not None:
         n, (rgb, _ab) = _on_mesh(_sharded_forward_for, mesh, net, args,
                                  float(maskcent))
-        return rgb.numpy()[:n]
+        with annotate("batch.readback"):
+            return rgb.numpy()[:n]
     rgb, _ab = batch_forward_frames(net, *args, float(maskcent))
-    return rgb.cpu().numpy()
+    with annotate("batch.readback"):
+        return rgb.cpu().numpy()
 
 
 @torch.no_grad()

@@ -54,6 +54,7 @@ import torch
 
 from ..ops.cuda import build
 from ..ops.hints import MAX_HINTS
+from ..utils.profiling import annotate, spanned
 
 CACHE_MAX = 8     # graphs a program keeps, FIFO
 _WARMUP = 2       # eager runs on a side stream before a capture
@@ -98,7 +99,9 @@ class GraphProgram:
     Calling it copies the changed arguments into the graph's input buffers,
     replays the graph and returns ``fn``'s outputs as captured: the graph's
     own buffers, valid until the next call with the same signature.
-    ``fn`` stays reachable as ``.fn``. ``captures`` and ``replays`` count."""
+    ``fn`` stays reachable as ``.fn``. ``captures`` and ``replays`` count;
+    under a profiler each capture is the span ``graph.capture`` and each
+    input copy the span ``graph.copy``."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -106,6 +109,7 @@ class GraphProgram:
         self.captures = 0
         self.replays = 0
 
+    @spanned("graph.capture")
     def _capture(self, args, options) -> _Captured:
         bufs, last = [], []
         for a in args:
@@ -175,7 +179,8 @@ class GraphProgram:
             last = cap.last[i]
             if last[0]() is a and last[1] == a._version:
                 continue
-            cap.bufs[i].copy_(a, non_blocking=True)
+            with annotate("graph.copy"):
+                cap.bufs[i].copy_(a, non_blocking=True)
             cap.last[i] = (weakref.ref(a), a._version)
         cap.graph.replay()
         for k, n in cap.nodes:

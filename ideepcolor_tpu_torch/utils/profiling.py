@@ -5,18 +5,44 @@ recorder with p50/p95 summaries (the server's ``/stats`` and ``/metrics``
 read it), and a thin layer over ``torch.profiler`` for device traces: a
 trace context that writes a Chrome trace (viewable in Perfetto), named spans
 inside it, and a summary of where the device time went.
+
+Spans. :func:`annotate` is the one span primitive: a
+``torch.profiler.record_function`` while a profiler runs, and otherwise one
+shared object that does nothing (no allocation, no dispatcher call, so the
+spans on a click's path cost nothing untraced). The profiler keeps the spans
+in memory beside the card's kernel and copy events, on their clock, and
+:func:`device_trace` writes them out with them. The program opens spans at
+its layer boundaries:
+
+* ``click`` around each public click entry of ``api/colorize.py``, and
+  inside it ``click.hints`` (the host's hint mirrors and their
+  normalization), ``click.upload`` (a click's table or hint planes onto the
+  card) and ``click.readback`` (the frame read back);
+* ``batch`` around ``engine.batch.colorize_batch_table`` and
+  ``colorize_batch``, and inside it ``batch.upload`` and ``batch.readback``;
+* ``graph.copy`` around each input copy that ``engine.graphs.GraphProgram``
+  makes before a replay (an unchanged argument opens none), and
+  ``graph.capture`` around each capture, warm-up included;
+* each :meth:`StageTimer.stage`, under the stage's name.
+
+Spans carry no request identifier: they nest by time on the calling
+thread, so a caller that makes one call at a time (a closed loop, a GUI)
+finds a request's spans inside its ``click`` or ``batch`` span.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import time
 from collections import defaultdict
 
 import numpy as np
+import torch
+from torch.profiler import record_function
 
 TRACE_FILE = "trace.json"
 
@@ -37,9 +63,12 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """Time the block into ``name``'s samples; under a profiler it is
+        also the span ``name`` (:func:`annotate`)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             self.samples[name].append(time.perf_counter() - t0)
 
@@ -72,8 +101,8 @@ def device_trace(log_dir: str):
     """``torch.profiler`` trace of the block: the host's ops always, the
     card's kernels and copies when CUDA is available. On exit the trace is
     written to ``log_dir/trace.json`` (Chrome trace format; Perfetto reads
-    it), the file :func:`device_op_summary` parses."""
-    import torch
+    it), the file :func:`device_op_summary` parses, with the program's
+    spans (:func:`annotate`)."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -86,10 +115,30 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
 
 
+# the span of an untraced process: one object, entered again and again
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
 def annotate(name: str):
-    """Named trace span for host-side stages inside a device_trace."""
-    from torch.profiler import record_function
+    """Named trace span: a ``record_function`` while a profiler runs (a
+    :func:`device_trace`, or the caller's own ``torch.profiler.profile``),
+    else one shared object that does nothing."""
+    if not _profiler_enabled():
+        return _NO_SPAN
     return record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function is the span ``name``
+    (:func:`annotate`)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # the device lane of a trace: what ran on the card
@@ -125,15 +174,31 @@ def _outermost(events: list) -> list:
     return out
 
 
+def _union_us(intervals) -> float:
+    """Length of the union of (start, end) intervals: time covered twice
+    counts once."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def device_op_summary(log_dir: str, reps: int = 1) -> dict:
     """Parse a :func:`device_trace` capture into a per-op time summary.
 
     The card's kernels, copies and memsets when the trace has them; for a
     trace taken on the CPU, where the CPU is the device, its outermost
-    ``aten`` ops. Returns {"total_ms_per_rep", "groups": {group:
-    ms_per_rep}, "top_ops": [(name, ms_per_rep), ...]}, the JAX function's
-    shape; ``reps`` divides the summed durations by the number of identical
-    steps captured."""
+    ``aten`` ops. A trace with calls into the CUDA runtime but no device
+    events (the profiler saw none of the card's work) raises ValueError:
+    its host ops are no device time. Busy time is the union of the
+    intervals, so work that overlaps on two streams counts once; so is each
+    group's and each op's time, and groups that overlapped sum to more than
+    the total. Returns {"total_ms_per_rep", "groups": {group: ms_per_rep},
+    "top_ops": [(name, ms_per_rep), ...]}, the JAX function's shape;
+    ``reps`` divides the times by the number of identical steps
+    captured."""
     path = os.path.join(log_dir, TRACE_FILE)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no {TRACE_FILE} under {log_dir}")
@@ -142,16 +207,24 @@ def device_op_summary(log_dir: str, reps: int = 1) -> dict:
                   if e.get("ph") == "X"]
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
     if not device:
+        if any(e.get("cat") in ("cuda_runtime", "cuda_driver")
+               for e in events):
+            raise ValueError(f"{path}: calls into the CUDA runtime but no "
+                             f"device events; the profiler saw no work of "
+                             f"the card")
         device = _outermost([e for e in events if e.get("cat") == "cpu_op"])
-    agg: collections.Counter = collections.Counter()
+    by_name, by_group = defaultdict(list), defaultdict(list)
     for e in device:
-        agg[e["name"]] += e.get("dur", 0.0)
-    groups: collections.Counter = collections.Counter()
-    for n, d in agg.items():
-        groups[_group(n)] += d
+        iv = (e["ts"], e["ts"] + e.get("dur", 0.0))
+        by_name[e["name"]].append(iv)
+        by_group[_group(e["name"])].append(iv)
+    agg = collections.Counter({n: _union_us(iv) for n, iv in by_name.items()})
+    groups = collections.Counter({g: _union_us(iv)
+                                  for g, iv in by_group.items()})
     to_ms = 1.0 / (1000.0 * max(reps, 1))
     return {
-        "total_ms_per_rep": sum(agg.values()) * to_ms,
+        "total_ms_per_rep": _union_us(
+            iv for ivs in by_name.values() for iv in ivs) * to_ms,
         "groups": {g: d * to_ms for g, d in groups.most_common()},
         "top_ops": [(n, d * to_ms) for n, d in agg.most_common(20)],
     }
