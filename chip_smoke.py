@@ -107,7 +107,11 @@ or more each; any failure exits non-zero:
 10. the batch engine: colorize_batch_table at N=8 against the per-image f32
    table clicks and stream_window_u8 at T=8 against the per-frame step, by
    frame_delta_stats within TF32_BOUND; every K1 and K2 entry, the two
-   batched ones included, must have launched on the engines' path;
+   batched ones included, must have launched on the engines' path. The
+   layouts of the convs: an N=16 TF32 forward (channels-last on the card)
+   must launch no NCHW <-> NHWC transpose, and an f32 table click must
+   still launch cuDNN's NCHW (nchwkcrs) fprop kernels; the TF32 forward's
+   conv and layout device time per batch beside the NCHW forward's;
 11. the Caffe family, the fourth path, with launch counts of its own: the
    three graphs at their one width, Xd=256, with weights made from a seed
    with numpy (``init_state_dict(calibrate=True)``) and loaded through
@@ -4479,8 +4483,10 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         averages = prof.key_averages()
+        # the program's spans have a device-side range too: not device work
         events = sorted((e for e in averages
-                         if e.device_type == DeviceType.CUDA),
+                         if e.device_type == DeviceType.CUDA
+                         and not getattr(e, "is_user_annotation", False)),
                         key=lambda e: -e.self_device_time_total)
         kernels = sum(e.count for e in events
                       if not e.key.startswith(("Memcpy", "Memset")))
@@ -5281,6 +5287,62 @@ def main() -> int:
           f"clock, frames read back; stream_window_u8 T=8 vs the per-frame "
           f"streaming step: max {w_lsb} LSB, {w_equal:.5f} equal; engines' "
           f"path launches {engine_launches}")
+
+    # the convs' layouts: the TF32 batch forward channels-last on the card
+    # (models.siggraph.activation_format), the f32 clicks NCHW
+    from ideepcolor_tpu_torch.device import conv_precision
+    transposes = ("nchwToNhwc", "nhwcToNchw")
+    conv_tags = ("fprop", "dgrad", "xmma", "implicit_gemm", "conv")
+    g16 = torch.Generator(device=dev).manual_seed(16)
+    planes = (torch.rand((16, 1, S, S), generator=g16, device=dev) * 100.0
+              - 50.0,
+              torch.rand((16, 2, S, S), generator=g16, device=dev) * 20.0,
+              (torch.rand((16, 1, S, S), generator=g16, device=dev) > 0.99)
+              .float())
+
+    def tf32_batch():
+        with torch.no_grad():
+            m.net(*planes, 0.0, precision_name="default")
+
+    def nchw_tf32_batch():          # the NCHW forward this path replaced
+        with torch.no_grad(), conv_precision("default"):
+            m.net._forward(*planes, 0.0, False, False,
+                           torch.contiguous_format)
+
+    def conv_split(events, n):
+        """(conv kernels, layout transposes, all busy) in ms per call."""
+        tr = sum(e.self_device_time_total for e in events
+                 if any(t in e.key for t in transposes))
+        conv = sum(e.self_device_time_total for e in events
+                   if any(t in e.key.lower() for t in conv_tags)
+                   and not any(t in e.key for t in transposes))
+        busy = sum(e.self_device_time_total for e in events)
+        return conv / n / 1e3, tr / n / 1e3, busy / n / 1e3
+
+    layout_line = []
+    for label, fn in [("NCHW", nchw_tf32_batch),
+                      ("channels-last", tf32_batch)] * 2:
+        fn()
+        torch.cuda.synchronize()
+        events, kernels, _ = device_profile(fn, 5)
+        conv_ms, tr_ms, busy_ms = conv_split(events, 5)
+        if label == "channels-last" and tr_ms:
+            die("the TF32 batch forward launched layout transposes: "
+                + ", ".join(e.key[:80] for e in events
+                            if any(t in e.key for t in transposes)))
+        layout_line.append(f"{label} conv {conv_ms:.3f} + transposes "
+                           f"{tr_ms:.3f} ms of {busy_ms:.3f} busy, "
+                           f"{kernels:.0f} kernels")
+    print("TF32 forward at N=16, 256x256 (device time per batch, 5 batches,"
+          " in turns): " + "; ".join(layout_line))
+    events, _, _ = device_profile(lambda: m.net_forward_table(bx[7], vl[7],
+                                                               ct[7]), 5)
+    fprop = [e.key for e in events if "fprop" in e.key]
+    if not fprop or not all("nchwkcrs" in k for k in fprop):
+        die(f"the f32 table click's fprop kernels are not cuDNN's NCHW "
+            f"ones: {[k[:80] for k in fprop]}")
+    print(f"f32 table click: {len(fprop)} fprop kernels, all NCHW "
+          f"(nchwkcrs), e.g. {fprop[0][:80]}")
 
     # 11. the Caffe family: the fourth path. Weights from a seed with numpy,
     # written once in the three formats prep_net takes and read back from

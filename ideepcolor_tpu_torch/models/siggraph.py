@@ -22,6 +22,12 @@ relayout. Details carried over exactly:
   :meth:`SIGGRAPHGenerator.cast_weights_` stores the weights in bf16, where
   each conv casts its input to the weight's type and its output back to
   f32 (the JAX package's ``_cast_params`` and ``layers.conv2d``);
+* layout: a TF32 forward on the card runs its activations channels-last
+  (NHWC), the layout of the TF32 kernels cuDNN picks, so it launches no
+  NCHW <-> NHWC transposes around them; every other forward runs
+  contiguous NCHW (:func:`activation_format`). The stored weights stay
+  NCHW either way; a channels-last forward takes a kept channels-last copy
+  of each conv's weight;
 * training: :func:`forward_train` (``apply_train``) runs the same net over
   a flat dict of tensors (:func:`train_params`) and returns the singly
   scaled regression output and the raw class logits at H/4; its BatchNorm
@@ -32,6 +38,7 @@ relayout. Details carried over exactly:
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Mapping
 
@@ -42,6 +49,7 @@ from torch import nn
 
 from ..device import conv_precision
 from ..ops.resize import upsample_nearest
+from ..utils.profiling import annotate
 from . import layers as L
 
 # (block, conv indices within the torch Sequential, bn index or None), the
@@ -78,20 +86,57 @@ def scaled_channels(width: float) -> tuple[int, int, int, int]:
     return tuple(r8(c) for c in FULL_CHANNELS)
 
 
-class _Conv2d(nn.Conv2d):
+class _LayoutWeight:
+    """The weight a conv takes for its input's layout. A channels-last input
+    takes a channels-last copy of the stored NCHW weight, the layout the
+    conv would otherwise convert the weight to on every call. The copy is
+    kept, and refreshed in place when the weight was written (a load, an
+    in-place update), cast or moved since; a captured graph reads the copy
+    as the last eager forward left it. Any other input, or a forward that
+    records gradients for the weight, takes the weight as it is."""
+
+    def _weight_for(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        # channels innermost, also in a strided slice; a tensor that is
+        # contiguous too (one channel, or 1x1) counts as NCHW, as in torch
+        if (x.stride(1) != 1 or x.shape[1] == 1 or x.is_contiguous()
+                or (w.requires_grad and torch.is_grad_enabled())):
+            return w
+        src, version, cl = self.__dict__.get("_cl_weight", (None,) * 3)
+        if (src is not None and src.data_ptr() == w.data_ptr()
+                and version == w._version):
+            return cl
+        if cl is not None and (cl.shape, cl.dtype, cl.device) == (
+                w.shape, w.dtype, w.device):
+            cl.copy_(w)           # in place: graphs captured on it follow
+        else:
+            cl = w.detach().contiguous(memory_format=torch.channels_last)
+        # ``src`` keeps the weight's storage alive, so no other tensor can
+        # take its address while the copy is keyed on it
+        self.__dict__["_cl_weight"] = (w.detach(), w._version, cl)
+        return cl
+
+
+class _Conv2d(_LayoutWeight, nn.Conv2d):
     """A conv whose weight's type is its compute type: the input is cast to
     it and the output back to f32 (accumulation is f32 in cuDNN and on the
     CPU). With f32 weights both casts return their argument."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype)).to(torch.float32)
+        x = x.to(self.weight.dtype)
+        return self._conv_forward(x, self._weight_for(x),
+                                  self.bias).to(torch.float32)
 
 
-class _ConvTranspose2d(nn.ConvTranspose2d):
+class _ConvTranspose2d(_LayoutWeight, nn.ConvTranspose2d):
     """As :class:`_Conv2d`, for the three k4 s2 p1 upsampling convs."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype)).to(torch.float32)
+        x = x.to(self.weight.dtype)
+        return F.conv_transpose2d(
+            x, self._weight_for(x), self.bias, self.stride, self.padding,
+            self.output_padding, self.groups,
+            self.dilation).to(torch.float32)
 
 
 def _conv(cin: int, cout: int, k: int = 3, dilation: int = 1) -> nn.Conv2d:
@@ -110,6 +155,22 @@ def _trunk(cin: int, cout: int, n: int, dilation: int = 1) -> nn.Sequential:
         layers += [_conv(cin if i == 0 else cout, cout, 3, dilation),
                    nn.ReLU()]
     return nn.Sequential(*layers, nn.BatchNorm2d(cout))
+
+
+# the span of an NCHW forward: one object, entered again and again
+_NO_SPAN = contextlib.nullcontext()
+
+
+def activation_format(device: torch.device,
+                      precision_name: str) -> torch.memory_format:
+    """The memory layout of a forward's activations: channels-last for a
+    forward at "default" (TF32) on a CUDA device, whose conv kernels in
+    cuDNN all take NHWC; contiguous NCHW for "highest" (the f32 clicks keep
+    the NCHW kernels, and with them their last bits) and for any forward on
+    the CPU (the JAX parity tests' path)."""
+    if device.type == "cuda" and precision_name == "default":
+        return torch.channels_last
+    return torch.contiguous_format
 
 
 class SIGGRAPHGenerator(nn.Module):
@@ -181,25 +242,32 @@ class SIGGRAPHGenerator(nn.Module):
 
         ``precision_name``: "highest" (f32 convs, the parity mode) or
         "default" (the convs may take TF32 on the card), scoped to this
-        call (``device.conv_precision``).
+        call (``device.conv_precision``). On a CUDA device "default" also
+        runs the activations channels-last (:func:`activation_format`), so
+        the outputs come back as channels-last tensors.
 
         With ``dist=True`` returns ``(out_reg * 110, out_cl)``: out_cl
         (N,529,H,W) softmax probabilities over the ab bins, the H/4 map
         nearest-upsampled x4. A lookup on the upsampled map equals one at
         (h // 4, w // 4) on the H/4 map, so ``dist_lowres=True`` keeps
         (N,529,H/4,W/4) and saves 16x the memory."""
-        with conv_precision(precision_name):
+        fmt = activation_format(input_A.device, precision_name)
+        nhwc = (annotate("model.nhwc") if fmt == torch.channels_last
+                else _NO_SPAN)
+        with conv_precision(precision_name), nhwc:
             return self._forward(input_A, input_B, mask_B, maskcent, dist,
-                                 dist_lowres)
+                                 dist_lowres, fmt)
 
     def _forward(self, input_A, input_B, mask_B, maskcent, dist,
-                 dist_lowres):
-        # contiguous NCHW whatever the callers' views are: channel-last
-        # views (the engines' boundary layout) would make ``cat`` give a
-        # channels-last tensor and the convs take other kernels, with other
-        # last bits, than for the clicks' planar inputs
+                 dist_lowres, fmt):
+        # the layout of :func:`activation_format`, whatever the callers'
+        # views are (the engines pass channel-last views, the clicks planar
+        # planes). Every op below keeps its input's layout, so the whole
+        # net runs in it. The module's weights stay NCHW, which keeps the
+        # "highest" forwards on their NCHW kernels; a channels-last forward
+        # takes each conv's kept channels-last copy (:class:`_LayoutWeight`)
         x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
-                      dim=1).contiguous()
+                      dim=1).contiguous(memory_format=fmt)
         conv1_2 = self.model1(x)
         conv2_2 = self.model2(conv1_2[:, :, ::2, ::2])
         conv3_3 = self.model3(conv2_2[:, :, ::2, ::2])
