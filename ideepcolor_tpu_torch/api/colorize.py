@@ -1176,10 +1176,16 @@ class ColorizeImageTorchCaffeGlobDist(ColorizeImageTorchCaffe):
         # is copied into the captured graph's own buffer at every click
         self._click = P.make_click_program(fwd, self.device)
 
+    @spanned("click.upload")
+    def _dev_glob(self, glob_dist) -> torch.Tensor:
+        """(1, 314) histogram blob on the device (``_glob_array``)."""
+        return self._to_dev(self._glob_array(glob_dist))
+
     def _glob_click(self, glob_dist):
         return self._click(self._dev_l_net, self._l_mc4(), self._hints3(),
-                           self._to_dev(self._glob_array(glob_dist)))
+                           self._dev_glob(glob_dist))
 
+    @spanned("click")
     def net_forward(self, input_ab, input_mask, glob_dist=-1):
         if ColorizeImageBase.net_forward(self, input_ab, input_mask) == -1:
             return -1

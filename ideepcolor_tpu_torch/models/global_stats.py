@@ -20,8 +20,10 @@ import torch
 from ..device import resolve_device
 from ..ops import colorspace as cs
 from ..ops.quantize import soft_encode
+from ..utils.profiling import spanned
 
 
+@spanned("glob.stats")
 @torch.no_grad()
 def extract(rgb, device=None) -> dict[str, torch.Tensor]:
     """rgb: (H, W, 3) float in [0, 1], H and W divisible by 4; a tensor

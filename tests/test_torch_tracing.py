@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from ideepcolor_tpu_torch.api.colorize import (ColorizeImageTorch,
-                                               ColorizeImageTorchCaffeDist)
+from ideepcolor_tpu_torch.api.colorize import (
+    ColorizeImageTorch, ColorizeImageTorchCaffeDist,
+    ColorizeImageTorchCaffeGlobDist)
 from ideepcolor_tpu_torch.engine import batch as tb
 from ideepcolor_tpu_torch.engine import graphs
+from ideepcolor_tpu_torch.models import global_stats
 from ideepcolor_tpu_torch.models.siggraph import (SIGGRAPHGenerator,
                                                   init_state_dict)
 from ideepcolor_tpu_torch.utils import profiling as tprof
@@ -79,6 +81,56 @@ def test_caffe_dist_dense_click_spans(tmp_path):
     # on the CPU the click program is a plain function: no graph copies
     _check_nested(spans, "click", {"click": 1, "click.hints": 1,
                                    "click.upload": 1, "click.readback": 1})
+
+
+def _global_click():
+    """A global-hints model on the CPU, its zero hint planes and the (313,)
+    histogram of another image."""
+    m = ColorizeImageTorchCaffeGlobDist(Xd=XD, device="cpu")
+    m.prep_net()
+    m.load_image_array(_image())
+    ref = torch.from_numpy(_image(XD, XD, seed=1)).to(torch.float32) / 255.0
+    hist = global_stats.extract(ref)["glob_ab_313"].numpy()
+    return (m, np.zeros((2, XD, XD), np.float32),
+            np.zeros((1, XD, XD), np.float32), hist)
+
+
+def test_caffe_global_click_spans(tmp_path, monkeypatch):
+    m, ab, mask, hist = _global_click()
+    glob_array = m._glob_array
+
+    def probed(glob_dist):
+        with tprof.annotate("probe.glob"):
+            return glob_array(glob_dist)
+
+    monkeypatch.setattr(m, "_glob_array", probed)
+    spans = _spans(tmp_path, lambda: m.net_forward(ab, mask, hist))
+    # the hint planes and the histogram blob each go up under click.upload
+    _check_nested(spans, "click", {"click": 1, "click.hints": 1,
+                                   "click.upload": 2, "click.readback": 1,
+                                   "probe.glob": 1})
+    (p0, p1), = [(s, e) for n, s, e in spans if n == "probe.glob"]
+    assert any(n == "click.upload" and s <= p0 <= p1 <= e
+               for n, s, e in spans)
+
+
+def test_global_stats_span(tmp_path):
+    rgb = torch.from_numpy(_image(XD, XD)).to(torch.float32) / 255.0
+    spans = _spans(tmp_path, lambda: global_stats.extract(rgb))
+    _check_nested(spans, "glob.stats", {"glob.stats": 1})
+
+
+def test_untraced_global_click_and_stats_open_no_span(monkeypatch):
+    m, ab, mask, hist = _global_click()
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) called untraced")
+
+    monkeypatch.setattr(tprof, "record_function", refuse)
+    assert tprof.annotate("glob.stats") is tprof.annotate("click")
+    rgb = torch.from_numpy(_image(XD, XD)).to(torch.float32) / 255.0
+    assert global_stats.extract(rgb)["glob_ab_313"].shape == (313,)
+    assert m.net_forward(ab, mask, hist).shape == (XD, XD, 3)
 
 
 def test_batch_spans(tmp_path):
