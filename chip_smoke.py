@@ -9,13 +9,14 @@ or more each; any failure exits non-zero:
 
 1. environment: Python, torch and CUDA versions, and the card's name and
    power limit as nvidia-smi reports them;
-2. build: both kernel sources of ideepcolor_tpu_torch/csrc (K1's library
-   exports the by-value entry and the batched, device-count entry; K2's
-   the compose, the fused click entry and the batched compose), one nvcc
-   each, in parallel, timed; then the native host runtime
-   (ideepcolor_tpu_torch/native/hostops.cpp, g++ -O3 -march=native
-   -fopenmp; it must build: every click's hint mirrors need it), its build
-   seconds, its OpenMP threads and its first window compose timed;
+2. build: the three kernel sources of ideepcolor_tpu_torch/csrc (K1's
+   library exports the by-value entry and the batched, device-count entry;
+   K2's the compose, the fused click entry and the batched compose; K3's
+   the global statistics), one nvcc each, in parallel, timed; then the
+   native host runtime (ideepcolor_tpu_torch/native/hostops.cpp, g++ -O3
+   -march=native -fopenmp; it must build: every click's hint mirrors need
+   it), its build seconds, its OpenMP threads and its first window compose
+   timed;
 3. K1 (hint rasterizer) against its plain version on the card, bit-exact,
    at 0, 10, 200 and 256 live hints (overlapping, across the edges) at
    S=256 and at S=250 (not a multiple of 4); timed at the main path's
@@ -45,7 +46,13 @@ or more each; any failure exits non-zero:
    within 1e-3 of requantized_ab of that frame, timed. The batched entry
    at N=8 and N=1 at 256x256 and N=3 at 33x17, in the batch engine's planar
    layout and with channel-last ab: the same bar, and each frame equal to
-   the single-frame entry's;
+   the single-frame entry's.
+   K3 (the global statistics) against its plain chain on the card, on the
+   Caffe path's global reference (256x256) and a 1000x752 one: the bin
+   counts apart by at most one pooled pixel (direct distance against the
+   chain's product expansion), the saturation and BGR means within
+   K3_MEAN_BOUND, two calls equal bit for bit; timed at 256x256 against
+   its 12 B/px bound, with the plain chain's eager time;
 5. the main path: ColorizeImageTorch(Xd=256) with the bundled full-width
    teacher weights -- load a seeded 1000x750 image, a table click with no
    hint, ten clicks that add hints, a dense click, the full-res, mask and
@@ -126,8 +133,8 @@ or more each; any failure exits non-zero:
    finite with rows summing to 1, ``dist_ab_full`` 529 with zeros outside
    the hull, confidences sorted and summing to 1. ``colorize_batch_global``
    at N=8 against eight ``net_forward`` calls, ``suggest_batch_table`` at
-   N=8 by its contract. K1's device-count entry and K2's compose, fused and
-   batched entries must launch. A CPU twin of the main, global and dist
+   N=8 by its contract. K1's device-count entry, K2's compose, fused and
+   batched entries and K3 must launch. A CPU twin of the main, global and dist
    clicks (fewer clicks) holds the frames, ``output_ab`` and the map to the
    CAFFE_* bounds below. A second set of models, captured with cuDNN's
    deterministic kernels, holds each Caffe click against the plain function
@@ -149,8 +156,8 @@ or more each; any failure exits non-zero:
    from two threads in turns, /suggest, /colorize_global, /colorize_batch
    (N=4, hint tables), /stats, /metrics and bad requests (the JAX server's
    status codes; JPEG 415 without OpenCV), then a bf16 server for 10 session
-   clicks. K1's device-count entry and K2's compose, fused and batched
-   entries must launch. Every reply is then held against the port's API
+   clicks. K1's device-count entry, K2's compose, fused and batched
+   entries and K3 must launch. Every reply is then held against the port's API
    called directly on the same inputs: f32 net frames 1 LSB on < 1e-3 of
    the pixels (a full-res reply is its own model's fusion byte for byte,
    and moves < 1e-3 of the pixels from the API's full-res frame),
@@ -302,7 +309,7 @@ or more each; any failure exits non-zero:
    stand-in ``matplotlib.pyplot`` records the plotting calls, and every
    device call runs for real); ``apps.convert`` on the teacher (.npz ->
    .pth, timed) and on the three seeded ``.caffemodel`` files. K1's
-   batched entry and K2's compose and fused entries must launch. Then:
+   batched entry, K2's compose and fused entries and K3 must launch. Then:
    (a) ``data.colorize_image`` and ``caffe`` resolve to the drop-in root,
    and no module of JAX or the JAX package is loaded at the child's end;
    (b) the drop-in session's frames byte-identical to the same clicks
@@ -350,7 +357,9 @@ or more each; any failure exits non-zero:
 
 Times are device times from CUDA events: a kernel's ``ms`` and the plain
 version's ``plain_ms`` are the median over 50 replays of a CUDA graph of 20
-calls, divided by 20. ``bound_ms`` is the larger of the bytes the function
+calls, divided by 20 (K3's plain chain uploads its bin centers every call,
+which a graph cannot capture: its ``plain_ms`` is the eager call's, CUDA
+events around 4 calls). ``bound_ms`` is the larger of the bytes the function
 must move over 3.35 TB/s and its f32 operations over 67 TFLOP/s (the H100
 SXM data sheet's HBM rate and f32 rate outside the tensor cores). No single
 PyTorch call computes either function, so ``library_ms`` is null.
@@ -373,10 +382,12 @@ F32_OPS_PER_S = 67e12
 K2_OPS_PER_PIXEL = 60        # f32 operations of the chain, pow counted once
 K2_AB_OPS_PER_PIXEL = 100    # the fused entry: the chain, then RGB -> Lab ab
 K2_BAR = (1, 1e-3)           # K2 vs plain: max LSB, share of values
+K3_MEAN_BOUND = 2e-5         # K3 vs plain: s_avg and bgr_avg
 AB_BAR = 1e-3                # fused ab vs requantized_ab of the same frame
 S = 256
 FULLRES_HW = (1000, 750)
 K2_SIZES = ((S, S), FULLRES_HW, (1536, 2048))
+K3_SIZES = ((S, S), (1000, 752))
 FRAME_BOUND_LSB = 1          # card vs CPU session, per channel
 FRAME_BOUND_SHARE = 1e-3     # of the pixels of any one frame
 WEIGHTS = "weights/teacher.npz"
@@ -767,13 +778,14 @@ def server_phase(entries, glob_weights: str) -> dict:
     from ideepcolor_tpu_torch.models import global_stats
     from ideepcolor_tpu_torch.ops import hints
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as k3
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     from ideepcolor_tpu_torch.ops.resize import resize_u8_half_pixel
     from ideepcolor_tpu_torch.utils.imageio import decode_image, encode_png
 
     fast_weights = "weights/student_w05.npz"
     server_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-                      k2.KERNEL_BATCH)
+                      k2.KERNEL_BATCH, k3.KERNEL)
     rtt: dict = {}                   # endpoint -> [client round trip, s]
 
     def request(srv, kind, method, path, body=None, headers=None):
@@ -3204,6 +3216,7 @@ def doors_child(work: str, dev_name: str) -> int:
     from ideepcolor_tpu_torch.ops import hints
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as k3
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     from ideepcolor_tpu_torch.utils.imageio import encode_png
     from ideepcolor_tpu_torch.utils.notebook import run_cells
@@ -3211,7 +3224,7 @@ def doors_child(work: str, dev_name: str) -> int:
     gpu_id = 0 if on_card else -1
     dev = torch.device(dev_name)
     entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-               k2.KERNEL_BATCH)
+               k2.KERNEL_BATCH, k3.KERNEL)
     if on_card:
         build.build_all(entries)                  # built by the parent
     teacher = os.path.join(repo, WEIGHTS)
@@ -3339,7 +3352,7 @@ def doors_child(work: str, dev_name: str) -> int:
           f"net_forward_table clicks, the getters), the global pattern, "
           f"both notebooks, the converter; launches {launches}")
     if on_card:
-        for k in (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB):
+        for k in (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB, k3.KERNEL):
             if launches[k.name] == 0:
                 die(f"phase 18: kernel {k.name} was not launched on the "
                     f"reference's doors")
@@ -4023,10 +4036,11 @@ def main() -> int:
     from ideepcolor_tpu_torch.ops import resize
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as k3
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     dev = torch.device("cuda")
     entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-               k2.KERNEL_BATCH)
+               k2.KERNEL_BATCH, k3.KERNEL)
     # the entries each path must put on the card: the API's clicks are
     # captured graphs, whose rasterizer is K1's device-count entry
     click_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB)
@@ -4043,9 +4057,9 @@ def main() -> int:
 
     # 2. build
     secs = build.build_all(entries)
-    print(f"build: {secs:.1f} s for {k1.KERNEL.source} and "
-          f"{k2.KERNEL.source}")
-    for k in (k1.KERNEL, k2.KERNEL):
+    print(f"build: {secs:.1f} s for {k1.KERNEL.source}, "
+          f"{k2.KERNEL.source} and {k3.KERNEL.source}")
+    for k in (k1.KERNEL, k2.KERNEL, k3.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.source}: {line.strip()}")
@@ -4406,6 +4420,48 @@ def main() -> int:
           f"{K2_BAR[0]} LSB on < {K2_BAR[1]})")
     print("library_ms: null for every K1 and K2 entry: no single PyTorch "
           "call computes either function")
+
+    # K3: the global statistics against the plain chain on the card
+    k3_err = 0.0
+    for H, W in K3_SIZES:
+        ref = image(6 if (H, W) == (S, S) else 7, H, W)
+        rgb = torch.from_numpy(ref).to(dev).to(torch.float32) / 255.0
+        got = k3.global_stats(rgb)
+        again = k3.global_stats(rgb)
+        want = k3.global_stats_plain(rgb)
+        pooled = (H // 4) * (W // 4)
+        counts = [(t.double() * pooled).round().long() for t in
+                  (got[0], want[0])]
+        moved = int((counts[0] - counts[1]).abs().sum()) // 2
+        err = max(float((got[1] - want[1]).abs()),
+                  float((got[2] - want[2]).abs().max()))
+        k3_err = max(k3_err, err)
+        if int(counts[0].sum()) != pooled or moved > 1:
+            die(f"K3 at {H}x{W}: {int(counts[0].sum())} pooled pixels "
+                f"counted of {pooled}, {moved} in another bin than the "
+                f"plain chain's")
+        if err > K3_MEAN_BOUND:
+            die(f"K3 at {H}x{W}: means {err:.2e} from the plain chain's")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            die(f"K3 at {H}x{W}: two calls differ")
+        print(f"K3 check {H}x{W}: {moved} of {pooled} pooled pixels in "
+              f"another bin than the plain chain's, means within "
+              f"{err:.2e} (bound {K3_MEAN_BOUND}), two calls bit-equal")
+    rgb = torch.from_numpy(image(6, S, S)).to(dev).to(torch.float32) / 255.0
+    ms = device_ms(lambda: k3.global_stats(rgb))
+    e_ms = eager_ms(lambda: k3.global_stats(rgb))
+    p_ms = eager_ms(lambda: k3.global_stats_plain(rgb), reps=4)
+    b_ms, b_by = bound(12 * S * S)
+    print(f"K3 time ({S}x{S}, {k3.blocks_for(S, S)} blocks + 1): kernel "
+          f"{ms:.5f} ms (two launches), eager call {e_ms:.5f} ms, plain "
+          f"chain eager {p_ms:.5f} ms, bound {b_ms:.6f} ms ({b_by}, 12 B/px "
+          f"in), share of bound {b_ms / ms:.3f}; library_ms null: no single "
+          f"PyTorch call computes the statistics")
+    report[k3.KERNEL.name] = dict(
+        max_abs_err=k3_err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, shape=[S, S, 3],
+        layout="(H,W,3) f32 contiguous in; (313,), (), (3,) f32 out; "
+               "partials then one finishing block")
 
     # 5. the main path on the card, launches counted; then the CPU session
     def session(device):
@@ -5497,7 +5553,7 @@ def main() -> int:
         return (cm_, cg_, cd_), out
 
     caffe_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-                     k2.KERNEL_BATCH)
+                     k2.KERNEL_BATCH, k3.KERNEL)
     torch.cuda.reset_peak_memory_stats()
     mem_before = torch.cuda.memory_allocated()
     for k in entries:

@@ -8,8 +8,12 @@ reference's weightless Caffe graph ``global_stats.prototxt``:
   plus the mean HSV saturation and the BGR channel means.
 
 The reference's dropout keep-flags are always 1 at inference, so the raw
-statistics are returned. The chain is torch ops on the device the image is
-on (or is sent to).
+statistics are returned. On the card the whole extraction is kernel K3
+(``ops/cuda/global_stats_kernel.py``: two launches, the bin centers
+uploaded once per device); on the CPU it is K3's plain version, the chain
+of torch ops. The two differ only where a pooled pixel lies within rounding
+of a bin boundary: K3 takes the direct distance to each bin center, the
+chain its product expansion.
 """
 
 from __future__ import annotations
@@ -18,8 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops import colorspace as cs
-from ..ops.quantize import soft_encode
+from ..ops.cuda import global_stats_kernel as k3
 from ..utils.profiling import spanned
 
 
@@ -40,10 +43,7 @@ def extract(rgb, device=None) -> dict[str, torch.Tensor]:
         rgb = torch.as_tensor(np.ascontiguousarray(rgb, np.float32),
                               device=resolve_device(device))
     rgb = rgb.to(torch.float32)
-    ab = cs.rgb_to_lab(rgb)[..., 1:]
-    h, w = ab.shape[0], ab.shape[1]
-    ab_rs = ab.reshape(h // 4, 4, w // 4, 4, 2).mean(dim=(1, 3))
-    glob = soft_encode(ab_rs, nn=1).mean(dim=(0, 1))
-    s_avg = cs.rgb_to_hsv(rgb)[..., 1].mean()
-    bgr_avg = rgb.mean(dim=(0, 1)).flip(0)
+    if rgb.device.type != "cpu":
+        rgb = rgb.contiguous()          # K3 reads whole rows
+    glob, s_avg, bgr_avg = k3.global_stats(rgb)
     return {"glob_ab_313": glob, "s_avg": s_avg, "bgr_avg": bgr_avg}

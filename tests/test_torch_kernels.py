@@ -1,6 +1,6 @@
-"""Port kernels K1 (hint rasterizer) and K2 (Lab -> uint8 compose, and its
-fused click entry with the requantized ab) against the JAX package, on the
-CPU.
+"""Port kernels K1 (hint rasterizer), K2 (Lab -> uint8 compose, and its
+fused click entry with the requantized ab) and K3 (the global color
+statistics) against the JAX package, on the CPU.
 
 On a CPU tensor each wrapper runs its kernel's plain version, so these tests
 hold that plain version to the JAX function and to the Pallas kernel run in
@@ -22,11 +22,14 @@ from ideepcolor_tpu.ops import colorspace as jcs
 from ideepcolor_tpu.ops import hints as jhints
 from ideepcolor_tpu.ops.pallas import colorspace_kernel as jck
 from ideepcolor_tpu.ops.pallas import hints_kernel as jhk
+from ideepcolor_tpu_torch.models import global_stats as tstats
 from ideepcolor_tpu_torch.ops import colorspace as tcs
 from ideepcolor_tpu_torch.ops import hints as thints
 from ideepcolor_tpu_torch.ops.cuda import build
 from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as tck
+from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as tgk
 from ideepcolor_tpu_torch.ops.cuda import hints_kernel as thk
+from ideepcolor_tpu_torch.ops.quantize import soft_encode
 
 torch.set_num_threads(1)
 
@@ -345,7 +348,10 @@ def test_wrappers_raise_on_cuda_without_kernel(monkeypatch):
             _OnCuda(torch.from_numpy(boxes)[None]),
             _OnCuda(torch.from_numpy(vals)[None]),
             _OnCuda(torch.zeros(1, dtype=torch.int32)), 16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tgk.global_stats(_OnCuda(torch.zeros(8, 12, 3)))
     assert thk.KERNEL_BATCH.launches == tck.KERNEL_BATCH.launches == 0
+    assert tgk.KERNEL.launches == 0
     assert (thk.KERNEL.launches, tck.KERNEL.launches,
             tck.KERNEL_AB.launches) == before
 
@@ -391,3 +397,87 @@ def test_wrappers_reject_bad_inputs_before_launch():
         thk.rasterize_hints_batch(
             b3, cuda(torch.zeros(2, 5, 2)),
             cuda(torch.zeros(2, dtype=torch.int32)), 8)
+
+
+@pytest.mark.parametrize("rgb,match", [
+    (torch.zeros(6, 8, 3), "multiples of 4"),            # H
+    (torch.zeros(8, 10, 3), "multiples of 4"),           # W
+    (torch.zeros(0, 8, 3), "multiples of 4"),            # empty
+    (torch.zeros(8, 8, 4), r"\(H, W, 3\)"),              # channels
+    (torch.zeros(8, 8), r"\(H, W, 3\)"),
+    (torch.zeros(8, 8, 3, dtype=torch.float64), "float32"),
+    (torch.zeros(8, 8, 3).transpose(0, 1), "contiguous"),
+    (torch.zeros(8 * 8 * 3 + 1)[1:].view(8, 8, 3), "16-byte"),
+])
+def test_k3_wrapper_rejects_before_launch(monkeypatch, rgb, match):
+    """K3's wrapper raises on what the kernel does not take, before it
+    loads the library or launches."""
+    def never(*a):
+        raise AssertionError("K3 reached its library")
+    monkeypatch.setattr(tgk.KERNEL, "load", never)
+    monkeypatch.setattr(tgk.KERNEL, "launch", never)
+    before = tgk.KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        tgk.global_stats(_OnCuda(rgb))
+    assert tgk.KERNEL.launches == before
+
+
+def _stats_chain(rgb):
+    """``extract``'s chain of torch ops before K3, written out."""
+    rgb = rgb.to(torch.float32)
+    ab = tcs.rgb_to_lab(rgb)[..., 1:]
+    h, w = ab.shape[0], ab.shape[1]
+    ab_rs = ab.reshape(h // 4, 4, w // 4, 4, 2).mean(dim=(1, 3))
+    glob = soft_encode(ab_rs, nn=1).mean(dim=(0, 1))
+    s_avg = tcs.rgb_to_hsv(rgb)[..., 1].mean()
+    bgr_avg = rgb.mean(dim=(0, 1)).flip(0)
+    return {"glob_ab_313": glob, "s_avg": s_avg, "bgr_avg": bgr_avg}
+
+
+def _stats_input(kind):
+    rng = np.random.default_rng(31)
+    if kind == "noise":
+        return torch.from_numpy(rng.random((32, 40, 3)).astype(np.float32))
+    if kind == "ref_256":
+        return torch.from_numpy(rng.random((256, 256, 3)).astype(np.float32))
+    if kind == "float64":
+        return torch.from_numpy(rng.random((16, 24, 3)))
+    if kind == "transposed":
+        return torch.from_numpy(rng.random((24, 16, 3)).astype(
+            np.float32)).transpose(0, 1)
+    return torch.zeros(8, 8, 3)                          # black
+
+
+@pytest.mark.parametrize("kind", ["noise", "ref_256", "float64",
+                                  "transposed", "black"])
+def test_k3_extract_on_the_cpu_is_the_chain(kind):
+    """On a CPU tensor ``extract`` (and K3's wrapper) run the plain chain:
+    bit for bit the chain of torch ops that ``extract`` was before K3, on
+    contiguous, transposed and float64 inputs alike."""
+    rgb = _stats_input(kind)
+    want = _stats_chain(rgb)
+    got = tstats.extract(rgb)
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].device.type == "cpu"
+        assert got[key].dtype == torch.float32
+        assert torch.equal(got[key], want[key]), key
+    glob, s_avg, bgr_avg = tgk.global_stats(rgb.to(torch.float32))
+    assert torch.equal(glob, want["glob_ab_313"])
+    assert torch.equal(s_avg, want["s_avg"])
+    assert torch.equal(bgr_avg, want["bgr_avg"])
+
+
+def test_k3_grid_and_centers():
+    """The partials kernel's grid follows the shape alone (a block for each
+    64 pooled pixels, at most 528), and the bin centers it reads are the
+    plain chain's."""
+    assert tgk.blocks_for(256, 256) == 64
+    assert tgk.blocks_for(4, 4) == 1
+    assert tgk.blocks_for(1000, 752) == 528
+    c = tgk.bin_centers(torch.device("cpu"))
+    assert c is tgk.bin_centers(torch.device("cpu"))      # made once
+    assert c.dtype == torch.float32 and tuple(c.shape) == (313, 2)
+    assert c.is_contiguous()
+    one_hot = soft_encode(c[None], nn=1)[0]
+    assert torch.equal(one_hot.argmax(1), torch.arange(313))
