@@ -216,36 +216,22 @@ or more each; any failure exits non-zero:
    to update_result) p50 / p95 on the host clock, f32 and bf16, against
    the 16.7 ms display frame; drag frames painted per second; the video
    app's steady fps beside phase 9's engine-only rate, and its host decode
-   and resize ms per frame. Then an f32 GUI with the window composed on
-   the host (``IDEEPCOLOR_WIN_COMPOSE=host``): the same scripted clicks,
-   each window within WIN_BOUND_* of the device compose's, and timed
-   clicks. Last, ``python -m ideepcolor_tpu_torch --help`` and
-   ``fidelity --list`` in subprocesses;
-15. the native host runtime and the host-composed clicks, the eighth path,
-   with launch counts of their own: the teacher at Xd=256 on a seeded
-   1000x750 image, three tables (0, 4, 10 hints), each through the table
-   click (hint mirrors rasterized on the host), the abq and abq_half
-   clicks (the full-res getter after the abq click reads the host ab,
-   uploaded on first read), net_forward_table_win_host and
-   net_forward_table_suggest_host with a 512-px window; then a server under
-   ``IDEEPCOLOR_NET_CLICK=abq`` (warmup, ten session clicks over HTTP and
-   a full-res one). K1's device-count entry and K2's fused entry must
-   launch. After the counts are read: host.rasterize_hints bit-exact
-   against K1 (10 and 200 hints, boxes across the edges, and every table
-   click's planes); host lab2rgb_u8_planar against K2's compose at
-   1000x750 (1 LSB on < 1e-3 of the values); zoom2_matrices against
-   zoom_with_matrices; the abq frames against the rgb click (ABQ_BOUND);
-   the captured abq payload against its plain function
-   (PAYLOAD_FLIP_SHARE); the host windows against K2's compose of the same
-   ab (the frame bound) and against the device window and click+suggest
-   clicks (WIN_BOUND_*); the suggest_host palette (row 0 exact, the
-   suggestions within SUGGEST_BOUND of win_suggest's on the same generator
-   state); the server's replies against the API's abq click
-   (ABQ_SERVER_BOUND), its full-res click an rgb click. Timed (host clock):
-   the table click f32 and bf16 with host mirrors, each host click beside
-   its device twin, and alone the 786 KB readback of K1's planes, the host
-   rasterizer and the plain K1 on the host CPU at 10 and 200 hints, the
-   two host composes;
+   and resize ms per frame. Last, ``python -m ideepcolor_tpu_torch
+   --help`` and ``fidelity --list`` in subprocesses;
+15. the native host runtime and the table clicks whose hint mirrors it
+   rasterizes, the eighth path, with launch counts of their own: the
+   teacher at Xd=256 on a seeded 1000x750 image, three tables (0, 4, 10
+   hints), each through the table click, the window click and the
+   click+suggest click with a 512-px window. K1's device-count entry and
+   K2's fused entry must launch. After the counts are read:
+   host.rasterize_hints bit-exact against K1 (10 and 200 hints, boxes
+   across the edges, and every click's mirrors); host lab2rgb_u8_planar
+   against K2's compose at 1000x750 (1 LSB on < 1e-3 of the values);
+   zoom2_matrices against zoom_with_matrices. Timed (host clock): the
+   table, window and click+suggest clicks f32 and the table click bf16,
+   each with host mirrors, and alone the 786 KB readback of K1's planes,
+   the host rasterizer and the plain K1 on the host CPU at 10 and 200
+   hints;
 16. the multi-device forms, the ninth path, with launch counts of their
    own: meshes whose entries all name the card (``parallel.mesh.make_mesh
    (devices=[card] * 8)``, the counterpart of XLA's forced host device
@@ -454,28 +440,9 @@ DRAG_EVENTS = 20
 VIDEO_FRAMES = 64
 VIDEO_HW = (480, 640)
 DISPLAY_FRAME_MS = 1000 / 60
-# phase 14's GUI in host compose mode against its device-compose GUI on the
-# same scripted clicks, and phase 15's host windows against the device
-# window clicks: the window bound of tests/test_torch_gui_logic.py (the
-# host Lab -> RGB and K2 differ by 1 LSB on a few values, and a net byte
-# flipped by cuDNN's atomics spreads over a few window pixels)
-WIN_BOUND_LSB = 2
-WIN_BOUND_SHARE = 5e-3
-# phase 15, the host runtime's clicks on the teacher: timed clicks per kind;
-# the abq frames against the rgb click on the same table (max LSB, least
-# PSNR in dB; the payload's 0.863-ab step moves a pixel by a few LSB where
-# the sRGB curve is steep, the half payload also smooths the chroma); the
-# captured abq payload against its plain function run eagerly (cuDNN's
-# atomics move a prediction across a step now and then: the share of values
-# one step apart); the abq server's replies against the API's abq click
-# (LSB, share of pixels)
-# (measured at Xd=256 on the port's CPU twin and on an H100 alike: abq 13
-# LSB, 51.21 dB; abq_half 84 LSB, 37.61 dB; payload 0 apart; server 1.5e-5
-# of the pixels)
+# phase 15, the host runtime's table clicks on the teacher: timed clicks per
+# kind
 HOST_TIMED = 30
-ABQ_BOUND = {"abq": (16, 45.0), "abq_half": (96, 33.0)}
-PAYLOAD_FLIP_SHARE = 1e-3
-ABQ_SERVER_BOUND = (16, 1e-3)
 # phase 16, the multi-device forms on meshes whose entries all name the card:
 # the batch sizes on the (4, 2) and (2, 2, 2) meshes (16 divides their
 # alignment 4, 19 does not), the global form's (its unsharded reference is
@@ -1773,37 +1740,6 @@ def frontend_phase(entries, dev, engine_fps: dict) -> dict:
         bf_ms.append(press(bdraw, bshown, *pts[i % len(pts)]))
     del bdraw
     sync()
-    # f32 with the window composed on the host (IDEEPCOLOR_WIN_COMPOSE=host):
-    # the scripted clicks against the device GUI's frames, then timed
-    saved_compose = os.environ.get("IDEEPCOLOR_WIN_COMPOSE")
-    os.environ["IDEEPCOLOR_WIN_COMPOSE"] = "host"
-    try:
-        hdraw, hshown, _ = gui(dev)
-    finally:
-        if saved_compose is None:
-            os.environ.pop("IDEEPCOLOR_WIN_COMPOSE", None)
-        else:
-            os.environ["IDEEPCOLOR_WIN_COMPOSE"] = saved_compose
-    if not hdraw._win_host:
-        die("GUI: IDEEPCOLOR_WIN_COMPOSE=host was not read")
-    hdraw.init_result(img_path)
-    host_gui_ms, host_gui_worst = [], 0.0
-    for i, ((x, y), color) in enumerate(zip(pts, colors)):
-        if not hdraw._can_fuse_suggest():
-            die("GUI host compose: the click+suggest program is not "
-                "available")
-        hdraw.user_color = color
-        host_gui_ms.append(press(hdraw, hshown, x, y))
-        host_gui_worst = max(host_gui_worst, frame_check(
-            f"GUI click {i}, host compose, against the device compose",
-            hdraw.result, record[i][3], WIN_BOUND_LSB, WIN_BOUND_SHARE))
-    for i in range(GUI_TIMED_CLICKS):
-        hdraw.user_color = colors[i % len(colors)][::-1]
-        host_gui_ms.append(press(hdraw, hshown,
-                                 *pts[1 + i % (len(pts) - 1)]))
-    del hdraw
-    sync()
-
     # b. the video app: a seeded clip of VIDEO_FRAMES PNG frames, a window
     # sliding one pixel a frame over a larger image
     for k in entries:
@@ -1936,7 +1872,6 @@ def frontend_phase(entries, dev, engine_fps: dict) -> dict:
     # the first clicks capture the click programs: the stats take the
     # timed re-clicks (f32) and the bf16 clicks after the first two
     ms, bms = np.array(click_ms[GUI_CLICKS:]), np.array(bf_ms[2:])
-    hms = np.array(host_gui_ms[GUI_CLICKS:])
     print(f"GUI drawing pad on {dev.type} (teacher, load size {S}, window "
           f"{draw.win_w}x{draw.win_h} of {WIN}, a {FULLRES_HW[0]}x"
           f"{FULLRES_HW[1]} (HxW) PNG through init_result: {load_ms:.1f} "
@@ -1954,12 +1889,7 @@ def frontend_phase(entries, dev, engine_fps: dict) -> dict:
           f"p95 {np.percentile(ms, 95):.3f} ms over {len(ms)} clicks; bf16:"
           f" p50 {np.percentile(bms, 50):.3f} ms, p95 "
           f"{np.percentile(bms, 95):.3f} ms over {len(bms)}; against the "
-          f"{DISPLAY_FRAME_MS:.1f} ms display frame. f32 with the window "
-          f"composed on the host (IDEEPCOLOR_WIN_COMPOSE=host): p50 "
-          f"{np.percentile(hms, 50):.3f} ms, p95 "
-          f"{np.percentile(hms, 95):.3f} ms over {len(hms)}, its scripted "
-          f"frames against the device compose's within {WIN_BOUND_LSB} LSB"
-          f" on at most {host_gui_worst:.2e} of the pixels. Alone: the API's "
+          f"{DISPLAY_FRAME_MS:.1f} ms display frame. Alone: the API's "
           f"click+suggest click p50 {np.percentile(api_ms, 50):.3f} ms, p95 "
           f"{np.percentile(api_ms, 95):.3f} ms; one gamut snap "
           f"(calibrate_color, on the host) p50 "
@@ -2032,26 +1962,19 @@ def frontend_phase(entries, dev, engine_fps: dict) -> dict:
 
 def host_phase(entries, dev) -> dict:
     """Phase 15: the native host runtime (``ops/host.py``,
-    ``native/hostops.cpp``) and the host-composed clicks on ``dev`` (the
-    card; "cpu" rehearses the phase's control flow). Returns the phase's
-    launches per kernel entry (the eighth count), read before the checks
-    and timings that launch kernels of their own."""
-    import http.client
-    import threading
-
+    ``native/hostops.cpp``) and the table clicks whose hint mirrors it
+    rasterizes, on ``dev`` (the card; "cpu" rehearses the phase's control
+    flow). Returns the phase's launches per kernel entry (the eighth
+    count), read before the checks and timings that launch kernels of
+    their own."""
     import torch
     from ideepcolor_tpu_torch.api import (ColorizeImageTorch,
                                           ColorizeImageTorchDist)
-    from ideepcolor_tpu_torch.api.colorize import (compose_net_abq_host,
-                                                   compose_window_host)
-    from ideepcolor_tpu_torch.apps import serve
-    from ideepcolor_tpu_torch.engine import pipeline as P
     from ideepcolor_tpu_torch.ops import hints, host
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     from ideepcolor_tpu_torch.ops.resize import (cubic_resize_matrix_np,
                                                  zoom_with_matrices)
-    from ideepcolor_tpu_torch.utils.imageio import decode_image, encode_png
 
     on_card = dev.type == "cuda"
     if not host.available():
@@ -2061,10 +1984,9 @@ def host_phase(entries, dev) -> dict:
         if on_card:
             torch.cuda.synchronize()
 
-    def clock(fn, n, idle_s=0.0):
+    def clock(fn, n):
         out = []
         for _ in range(n):
-            time.sleep(idle_s)
             t0 = time.perf_counter()
             fn()
             sync()
@@ -2074,10 +1996,6 @@ def host_phase(entries, dev) -> dict:
     def pq(t):
         return f"p50 {np.percentile(t, 50):.3f} ms, p95 " \
                f"{np.percentile(t, 95):.3f} ms"
-
-    def psnr(a, b):
-        mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-        return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
     def models(dtype=None):
         m = ColorizeImageTorch(Xd=S, device=dev)
@@ -2090,8 +2008,7 @@ def host_phase(entries, dev) -> dict:
         return m, d
 
     # the window of the GUI's dist session: a WIN-px window of the image,
-    # its L plane on the host (host rgb2lab) and on the device, the cubic
-    # matrices
+    # its L plane by the host rgb2lab, the cubic matrices, on the device
     wh, ww = WIN, WIN * FULLRES_HW[1] // FULLRES_HW[0] // 4 * 4
     win_rgb = image(1501, wh, ww)
     l_win_np = host.rgb2lab(win_rgb.astype(np.float32) / 255.0)[..., :1]
@@ -2099,15 +2016,14 @@ def host_phase(entries, dev) -> dict:
     rw_np = cubic_resize_matrix_np(S, ww)
     l_win = torch.from_numpy(np.ascontiguousarray(l_win_np)).to(dev)
     rh, rw = torch.from_numpy(rh_np).to(dev), torch.from_numpy(rw_np).to(dev)
-    host_win = (l_win_np, rh_np, rw_np)
     dev_win = (l_win, rh, rw)
     tables = [hints.points_json_to_table(session_hints(n, seed=90 + n), S)
               for n in (0, 4, 10)]
     empty = tables[0]
     pix = [(h["y"], h["x"]) for h in session_hints(len(tables), seed=95)]
 
-    # -- the path, launches counted: the clicks of the teacher at Xd=S and
-    # a server whose session clicks are abq clicks --
+    # -- the path, launches counted: the table, window and click+suggest
+    # clicks of the teacher at Xd=S, each with its mirrors from the host --
     sync()
     for k in entries:
         k.launches = 0
@@ -2115,79 +2031,20 @@ def host_phase(entries, dev) -> dict:
     m, d = models()
     d.predict_dist_table(*empty)
     m.net_forward_table(*empty)
-    rec = []
+    mirrors = []
     for t, (h, w) in zip(tables, pix):
-        rgb = m.net_forward_table(*t).copy()
-        mirrors = (m.input_ab.copy(), m.input_mask.copy())
-        abq = m.net_forward_table_abq(*t).copy()
-        parked = m._dev_out_ab_val is None
-        full_abq = m.get_img_fullres()
-        ab_host = m.output_ab.copy()
-        abq_half = m.net_forward_table_abq(*t, half=True).copy()
-        win_host = m.net_forward_table_win_host(*t, *host_win)
-        net_win_host = m.output_rgb.copy()
-        dev_ab = m._dev_output_ab
-        win_sug, colors = m.net_forward_table_suggest_host(
-            *t, *host_win, d, h, w, K=SUGGEST_K)
-        rec.append(dict(table=t, pixel=(h, w), rgb=rgb, mirrors=mirrors,
-                        abq=abq, parked=parked, full_abq=full_abq,
-                        ab_host=ab_host, abq_half=abq_half,
-                        win_host=win_host, net_win_host=net_win_host,
-                        dev_ab=dev_ab, win_sug=win_sug, colors=colors,
-                        net_sug=m.output_rgb.copy()))
-    # a server under IDEEPCOLOR_NET_CLICK=abq: ten session clicks over HTTP
-    # and a full-res one
-    saved_mode = os.environ.get("IDEEPCOLOR_NET_CLICK")
-    os.environ["IDEEPCOLOR_NET_CLICK"] = "abq"
-    try:
-        srv = serve.make_server(port=0, size=S, device=dev.type,
-                                weights=WEIGHTS, dtype="float32")
-        threading.Thread(target=srv.serve_forever, daemon=True).start()
-        svc = srv.RequestHandlerClass.service
-        svc.warmup()
-        body = encode_png(image(1502, 600, 450))
-
-        def post(path, data, ctype="application/octet-stream"):
-            c = http.client.HTTPConnection(*srv.server_address, timeout=300)
-            t0 = time.perf_counter()
-            c.request("POST", path, body=data,
-                      headers={"Content-Type": ctype})
-            r = c.getresponse()
-            out = r.read()
-            c.close()
-            if r.status != 200:
-                die(f"abq server: POST {path} answered {r.status}: "
-                    f"{out[:200]!r}")
-            return out, (time.perf_counter() - t0) * 1e3
-
-        sid = json.loads(post("/session", body)[0])["id"]
-        served, served_ms = [], []
-        for i in range(10):
-            hs = session_hints(i + 1, seed=97)
-            reply, ms = post(f"/session/click?id={sid}",
-                             json.dumps(hs).encode(), "application/json")
-            served.append((hs, decode_image(reply)))
-            served_ms.append(ms)
-        full_reply = decode_image(post(f"/session/click?id={sid}&fullres=1",
-                                       json.dumps(hs).encode(),
-                                       "application/json")[0])
-        sess = svc._sessions[sid]
-        full_took_rgb = sess._out_ab_host_pending is None
-        srv.shutdown()
-        srv.server_close()
-    finally:
-        if saved_mode is None:
-            os.environ.pop("IDEEPCOLOR_NET_CLICK", None)
-        else:
-            os.environ["IDEEPCOLOR_NET_CLICK"] = saved_mode
+        for click in (lambda: m.net_forward_table(*t),
+                      lambda: m.net_forward_table_win(*t, *dev_win),
+                      lambda: m.net_forward_table_win_suggest(
+                          *t, *dev_win, d, h, w, K=SUGGEST_K)):
+            click()
+            mirrors.append((t, m.input_ab.copy(), m.input_mask.copy()))
     sync()
     phase_launches = {k.name: k.launches for k in entries}
     path_s = time.perf_counter() - t_phase
     print(f"host ops path on {dev.type} ({path_s:.1f} s: {len(tables)} "
-          f"tables x (table, abq, abq_half, win_host, suggest_host clicks) "
-          f"on the teacher at Xd={S}, a {wh}x{ww} window, an abq server: 10 "
-          f"session clicks over HTTP and a full-res one): launches "
-          f"{phase_launches}")
+          f"tables x (table, window, click+suggest clicks) on the teacher "
+          f"at Xd={S}, a {wh}x{ww} window): launches {phase_launches}")
     if on_card:
         idle = [k.name for k in (k1.KERNEL_BATCH, k2.KERNEL_AB)
                 if phase_launches[k.name] == 0]
@@ -2196,8 +2053,7 @@ def host_phase(entries, dev) -> dict:
 
     # -- checks, after the counts are read --
     # the host rasterizer bit-exact against K1's planes, boxes across the
-    # edges, 10 and 200 hints; and the session's mirrors against K1's
-    worst_mirror = 0
+    # edges, 10 and 200 hints; and every click's mirrors against K1's
     for n in (10, 200):
         boxes, values, count = k1_table(n)
         ab, mask = host.rasterize_hints(boxes, values, count, S)
@@ -2207,13 +2063,12 @@ def host_phase(entries, dev) -> dict:
         if not (np.array_equal(planes[:2], ab.transpose(2, 0, 1))
                 and np.array_equal(planes[2:], mask.transpose(2, 0, 1))):
             die(f"host.rasterize_hints differs from K1 at {n} hints")
-    for r in rec:
-        b, v, c = r["table"]
+    for (b, v, c), ab, mask in mirrors:
         planes = k1.rasterize_hints_planar(
             torch.from_numpy(b).to(dev), torch.from_numpy(v).to(dev), c,
             S).cpu().numpy()
-        if not (np.array_equal(planes[:2], r["mirrors"][0])
-                and np.array_equal(planes[2:], r["mirrors"][1])):
+        if not (np.array_equal(planes[:2], ab)
+                and np.array_equal(planes[2:], mask)):
             die("a table click's host mirrors differ from K1's planes")
     # lab2rgb_u8_planar against K2's compose at the full-res size
     rng = np.random.default_rng(1503)
@@ -2237,113 +2092,12 @@ def host_phase(entries, dev) -> dict:
                          np.abs(zb - zw[..., 1]).max()))
     if zoom_err > 2e-3:
         die(f"host zoom2_matrices against zoom_with_matrices: {zoom_err}")
-    # the clicks against their device twins
-    abq_stats, worst = {}, {}
-    for r in rec:
-        for kind in ("abq", "abq_half"):
-            mx, share = lsb(torch.from_numpy(r[kind]),
-                            torch.from_numpy(r["rgb"]))
-            p = psnr(r[kind], r["rgb"])
-            old = abq_stats.get(kind, (0, 0.0, float("inf")))
-            abq_stats[kind] = (max(old[0], mx), max(old[1], share),
-                               min(old[2], p))
-        if not r["parked"]:
-            die("abq click: output_ab was uploaded before a getter read it")
-        H, W = m._fullres_hw
-        want_full = P.fullres_fuse_bucketed(
-            m._dev_l_fullres_pad, torch.from_numpy(np.ascontiguousarray(
-                r["ab_host"].transpose(1, 2, 0))).to(dev), m._dev_rh,
-            m._dev_rw).cpu().numpy()[:H, :W]
-        if not np.array_equal(r["full_abq"], want_full):
-            die("abq click: get_img_fullres does not read the host ab")
-        # the host window compose against K2's compose of the same ab
-        dwin = P.fullres_fuse(l_win, r["dev_ab"], rh, rw).cpu().numpy()
-        worst["win_host vs K2 on the same ab"] = max(
-            worst.get("win_host vs K2 on the same ab", 0), frame_check(
-                "win_host window against K2's compose of the same ab",
-                r["win_host"], dwin, FRAME_BOUND_LSB, FRAME_BOUND_SHARE))
-        if not np.array_equal(r["win_sug"], compose_window_host(
-                r["net_sug"], *host_win)):
-            die("suggest_host window is not the host compose of its frame")
-    for kind, (mx, share, p) in abq_stats.items():
-        b_lsb, b_psnr = ABQ_BOUND[kind]
-        if mx > b_lsb or p < b_psnr:
-            die(f"{kind} frames against the rgb click: {mx} LSB, {p:.2f} "
-                f"dB (bound {b_lsb} LSB, {b_psnr} dB)")
-    # device twins on the same tables: the window click, the click+suggest
-    # click (same generator state: both graphs captured first)
-    for r in rec:
-        t, (h, w) = r["table"], r["pixel"]
-        want = m.net_forward_table_win(*t, *dev_win)
-        worst["win_host vs win"] = max(worst.get("win_host vs win", 0),
-                                       frame_check(
-            "win_host against the device window click", r["win_host"],
-            want, WIN_BOUND_LSB, WIN_BOUND_SHARE))
-    t, (h, w) = rec[-1]["table"], rec[-1]["pixel"]
-    m.net_forward_table_win_suggest(*t, *dev_win, d, h, w, K=SUGGEST_K)
-    m.net_forward_table(*t)
-    prev = m.output_rgb.copy()
-    state = d._generator.get_state()
-    hwin, hcol = m.net_forward_table_suggest_host(*t, *host_win, d, h, w,
-                                                  K=SUGGEST_K)
-    d._generator.set_state(state)
-    m.net_forward_table(*t)
-    dwin, dcol = m.net_forward_table_win_suggest(*t, *dev_win, d, h, w,
-                                                 K=SUGGEST_K)
-    if not np.array_equal(hcol[0], prev[h, w].astype(np.float32) / 255.0):
-        die("suggest_host palette row 0 is not the previous frame's pixel")
-    col_lsb = float(np.abs(hcol[1:] - dcol[1:]).max() * 255)
-    if col_lsb > SUGGEST_BOUND[0] + 0.5:
-        die(f"suggest_host suggestions against win_suggest's: {col_lsb} "
-            f"LSB")
-    worst["suggest_host vs win_suggest"] = frame_check(
-        "suggest_host window against the click+suggest click's", hwin, dwin,
-        WIN_BOUND_LSB, WIN_BOUND_SHARE)
-    # the abq payload, captured, against the plain function it was
-    # captured from (eager, default cuDNN kernels)
-    pay_share = 0.0
-    for half in (False, True):
-        prog = m._click_tbl_abq_half if half else m._click_tbl_abq
-        for t in tables:
-            tab = m._dev_table(*t)
-            cap = prog(m._dev_l_mc, *tab)[0].cpu().numpy()
-            plain = prog.fn(m._dev_l_mc, *(x.t if hasattr(x, "t") else x
-                                            for x in tab))[0].cpu().numpy() \
-                if on_card else cap
-            dd = np.abs(cap.astype(int) - plain.astype(int))
-            pay_share = max(pay_share, float(np.mean(dd != 0)))
-            if dd.max() > 1 or pay_share > PAYLOAD_FLIP_SHARE:
-                die(f"abq payload captured vs eager: {dd.max()} steps on "
-                    f"{pay_share:.2e}")
-    # the abq server's replies against the API's abq click on the same
-    # image and table; the full-res click took the rgb click
-    ref = ColorizeImageTorch(Xd=S, device=dev)
-    ref.prep_net(path=WEIGHTS)
-    ref.load_image_array(decode_image(body))
-    for hs, reply in served:
-        worst["abq server vs API"] = max(
-            worst.get("abq server vs API", 0), frame_check(
-                "abq server session click against the API's abq click",
-                reply, ref.net_forward_table_abq(
-                    *hints.points_json_to_table(hs, S)),
-                ABQ_SERVER_BOUND[0], ABQ_SERVER_BOUND[1]))
-    if not full_took_rgb or full_reply.shape != (600, 450, 3):
-        die("abq server: the full-res session click did not stay rgb")
     print(f"host ops checks: host.rasterize_hints bit-exact against K1 at "
-          f"10 and 200 hints (boxes across the edges) and against every "
-          f"session click's K1 planes; lab2rgb_u8_planar against K2's "
-          f"compose at {H}x{W}: 1 LSB on {lab_share:.2e} of the values; "
-          f"zoom2_matrices against zoom_with_matrices: {zoom_err:.2e}; "
-          f"abq payload captured vs eager: one step on {pay_share:.2e}; "
-          f"suggest_host palette row 0 exact, suggestions within "
-          f"{col_lsb:.2f} LSB of win_suggest's; the lazy ab upload read by "
-          f"get_img_fullres; abq server replies; the full-res session "
-          f"click stayed rgb. Pixel shares differing: " + ", ".join(
-              f"{k} {v:.2e}" for k, v in worst.items()))
-    for kind, (mx, share, p) in abq_stats.items():
-        print(f"{kind} frame against the rgb click (Xd={S}, 0/4/10 "
-              f"hints): max {mx} LSB, {share:.4f} of the pixels differ, "
-              f"PSNR >= {p:.2f} dB")
+          f"10 and 200 hints (boxes across the edges) and against the K1 "
+          f"planes of all {len(mirrors)} clicks' tables; lab2rgb_u8_planar "
+          f"against K2's compose at {H}x{W}: 1 LSB on {lab_share:.2e} of "
+          f"the values; zoom2_matrices against zoom_with_matrices: "
+          f"{zoom_err:.2e}")
 
     # -- timings (host clock, frames read back), for information --
     t = tables[-1]
@@ -2352,18 +2106,11 @@ def host_phase(entries, dev) -> dict:
     times = {}
     for name, fn in (
             ("table click (host mirrors)", lambda: m.net_forward_table(*t)),
-            ("abq click", lambda: m.net_forward_table_abq(*t)),
-            ("abq_half click", lambda: m.net_forward_table_abq(
-                *t, half=True)),
-            ("win click (device window)",
+            ("win click (host mirrors)",
              lambda: m.net_forward_table_win(*t, *dev_win)),
-            ("win_host click", lambda: m.net_forward_table_win_host(
-                *t, *host_win)),
-            ("click+suggest (device window)",
+            ("click+suggest (host mirrors)",
              lambda: m.net_forward_table_win_suggest(
-                 *t, *dev_win, d, h, w, K=SUGGEST_K)),
-            ("suggest_host click", lambda: m.net_forward_table_suggest_host(
-                *t, *host_win, d, h, w, K=SUGGEST_K))):
+                 *t, *dev_win, d, h, w, K=SUGGEST_K))):
         fn()
         times[name] = clock(fn, n)
     bm, _bd = models("bfloat16")
@@ -2374,9 +2121,8 @@ def host_phase(entries, dev) -> dict:
     for name, tm in times.items():
         print(f"{name}: {pq(tm)} over {n}")
     # the pieces alone: the readback the mirrors used to need, the host
-    # rasterizer (and the plain K1 on the host's live slots, the drag's old
-    # mirrors), the host composes back to back and, as a click meets them,
-    # after 10 ms of idle (the OpenMP team has gone to sleep)
+    # rasterizer, and the plain K1 on the host's live slots (the drag's old
+    # mirrors)
     planes = k1.rasterize_hints_planar(
         *(torch.from_numpy(x).to(dev) for x in k1_table(10)[:2]), 10, S)
     alone = {"K1 planes read back (786 KB, pageable)":
@@ -2388,23 +2134,11 @@ def host_phase(entries, dev) -> dict:
         tb, tv = torch.from_numpy(bx[:cx]), torch.from_numpy(vx[:cx])
         alone[f"plain K1 on the host CPU (live slots), {n_h} hints"] = \
             clock(lambda: hints.rasterize_hints(tb, tv, cx, S), 20)
-    net = rec[-1]["rgb"]
-    alone[f"compose_window_host {wh}x{ww}"] = clock(
-        lambda: compose_window_host(net, *host_win), 50)
-    alone[f"compose_window_host {wh}x{ww} after 10 ms idle"] = clock(
-        lambda: compose_window_host(net, *host_win), 30, idle_s=0.01)
-    l_net = m._host_l_net()
-    for half in (False, True):
-        prog = m._click_tbl_abq_half if half else m._click_tbl_abq
-        pay = prog(m._dev_l_mc, *m._dev_table(*t))[0].cpu().numpy()
-        alone[f"compose_net_abq_host{', half' if half else ''}"] = clock(
-            lambda: compose_net_abq_host(l_net, pay, half=half), 50)
     for name, tm in alone.items():
         print(f"  alone: {name}: {pq(tm)}")
-    print(f"abq server: session click over HTTP {pq(np.array(served_ms))} "
-          f"over 10; host runtime: {host.get_lib().num_threads()} OpenMP "
-          f"threads, torch {torch.get_num_threads()} intra-op threads; "
-          f"phase {time.perf_counter() - t_phase:.1f} s")
+    print(f"host runtime: {host.get_lib().num_threads()} OpenMP threads, "
+          f"torch {torch.get_num_threads()} intra-op threads; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return phase_launches
 
 
@@ -4063,23 +3797,19 @@ def main() -> int:
         for line in k.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.source}: {line.strip()}")
-    from ideepcolor_tpu_torch.api.colorize import compose_window_host
     from ideepcolor_tpu_torch.ops import host
     t0 = time.perf_counter()
     if not host.available():
         die("the native host runtime did not build: no g++ on this machine")
     host_build_s = time.perf_counter() - t0
-    lut_rgb = image(3, S, S)
-    lut_l = np.full((WIN, WIN, 1), 50.0, np.float32)
-    lut_m = resize.cubic_resize_matrix_np(S, WIN)
     t0 = time.perf_counter()
-    compose_window_host(lut_rgb, lut_l, lut_m, lut_m)
+    host.rasterize_hints(*k1_table(200), S)
     first_ms = (time.perf_counter() - t0) * 1e3
     print(f"build: host runtime {host.library_path('g++').name} "
           f"(g++ {' '.join(host.CXX_FLAGS)}): {host_build_s:.2f} s with the "
           f"load; {host.get_lib().num_threads()} OpenMP threads; first "
-          f"{WIN}x{WIN} compose_window_host (gamma table, thread team) "
-          f"{first_ms:.2f} ms")
+          f"host.rasterize_hints at 200 hints (thread team) {first_ms:.2f} "
+          f"ms")
 
     report = {}
 
@@ -5857,7 +5587,7 @@ def main() -> int:
     frontend_launches = frontend_phase(
         entries, dev, {"dense": fps["dense", False],
                        "table": fps["table", False]})
-    # 15. the native host runtime and the host-composed clicks (eighth)
+    # 15. the native host runtime and the host-mirrored table clicks (eighth)
     host_ops_launches = host_phase(entries, dev)
     # 16. the multi-device forms on meshes that repeat the card (ninth)
     mesh_launches = mesh_phase(entries, dev, sds["global"])

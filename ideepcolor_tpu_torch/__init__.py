@@ -38,8 +38,7 @@ held against. It imports torch and numpy, never jax, and nothing of
              holds the hand-written kernels (sources in csrc/),
              counterparts of ops/pallas; ops/host the native host runtime
              (C++ in native/hostops.cpp, built with g++ at first use): the
-             hint mirrors, the host-composed window and abq frames, host
-             Lab
+             hint mirrors and host Lab
   utils/     array and image-grid helpers, stage timers and device traces,
              session dumps and weight files, the soak-load generator, the
              port's own PNG codec, file reader and RGB->gray (imageio)

@@ -30,12 +30,9 @@ in it; each reads the whole padded frame back and crops it on the host.
 
 The numpy hint mirrors of every table click (``input_ab``, ``input_mask``)
 are rasterized on the host from the click's table by the native host
-runtime (``ops.host``); K1's planes are never read back for them. The
-``*_host`` clicks compose their window frame on the host from the net frame
-(:func:`compose_window_host`), and the ``abq`` clicks read back only the
-uint8-quantized ab and compose the net frame on the host
-(:func:`compose_net_abq_host`); ``IDEEPCOLOR_NET_CLICK`` chooses between
-``rgb`` and ``abq[_half]`` where a caller asks (:func:`net_click_mode`).
+runtime (``ops.host``); K1's planes are never read back for them. Every
+frame a click returns, the net frame and the window frame, is composed on
+the device.
 
 Under a profiler each click entry is the span ``click``, with the spans
 ``click.hints`` (the host's hint mirrors and normalization),
@@ -46,7 +43,6 @@ Under a profiler each click entry is the span ``click``, with the spans
 
 from __future__ import annotations
 
-import os
 import threading
 
 import numpy as np
@@ -64,9 +60,8 @@ from ..ops import host
 from ..ops import quantize
 from ..ops.cuda import colorspace_kernel as k2
 from ..ops.quantize import make_pts_grid
-from ..ops.resize import (cubic_resize_matrix_np, linear_resize_matrix_np,
-                          nearest_resize_matrix_np, resize_u8_half_pixel,
-                          zoom_with_matrices)
+from ..ops.resize import (linear_resize_matrix_np, nearest_resize_matrix_np,
+                          resize_u8_half_pixel, zoom_with_matrices)
 from ..utils.imageio import read_image
 from ..utils.profiling import annotate, spanned
 
@@ -94,55 +89,6 @@ def lab2rgb_transpose(img_l, img_ab, device=None) -> np.ndarray:
     l = torch.as_tensor(np.asarray(img_l, np.float32), device=dev)
     ab = torch.as_tensor(np.asarray(img_ab, np.float32), device=dev)
     return k2.lab_to_rgb_u8_hwc(l[0], ab[0], ab[1]).cpu().numpy()
-
-
-def compose_window_host(net_rgb_u8, l_win_pad, rh, rw) -> np.ndarray:
-    """The window-size display frame composed on the host from the net-size
-    frame, by the native host runtime: the same chain as the device window
-    clicks (requantized uint8 ab -> resize by the matrices -> truncating
-    Lab -> uint8 RGB), planar end to end, with the banded zoom.
-
-    net_rgb_u8 (S,S,3) uint8; l_win_pad (Hw,Ww,1) float L plane; rh (Hw,S)
-    / rw (Ww,S) float32 resize matrices -> (Hw,Ww,3) uint8."""
-    a0, b0 = host.rgb2lab_u8_ab(net_rgb_u8)
-    a, b = host.zoom2_matrices(a0, b0, rh, rw)
-    return host.lab2rgb_u8_planar(
-        np.asarray(l_win_pad, np.float32)[..., 0], a, b)
-
-
-def net_click_mode() -> str:
-    """The session click's transport, ``IDEEPCOLOR_NET_CLICK``: ``rgb``
-    (the default: the frame composed on the device and read back), ``abq``
-    (the uint8-quantized ab read back, 2/3 of the frame's bytes, and the
-    frame composed on the host) or ``abq_half`` (the payload 2x2-averaged
-    too, 1/6 of the bytes). Any other value is ``rgb``."""
-    mode = os.environ.get("IDEEPCOLOR_NET_CLICK", "rgb")
-    return mode if mode in ("abq", "abq_half", "rgb") else "rgb"
-
-
-_ABQ_ZOOM_CACHE: dict = {}
-
-
-def compose_net_abq_host(l_net_hw, abq, half=False) -> np.ndarray:
-    """The net-size display frame composed on the host from an abq click's
-    payload (``engine.pipeline.make_table_click_abq_program``): dequantize
-    the uint8 ab, cubic-upsample it 2x when the payload was averaged
-    (``half``; the banded zoom), then the native planar Lab -> uint8 RGB.
-    l_net_hw (S,S) float L plane (the API keeps one readback of it per
-    image, ``_host_l_net``); abq (S,S,2) or (S/2,S/2,2) uint8. The upsample
-    matrices are cached by size, at most 8 pairs."""
-    a = abq[..., 0].astype(np.float32) * (1.0 / P.AB_Q_SCALE) - P.AB_CLIP
-    b = abq[..., 1].astype(np.float32) * (1.0 / P.AB_Q_SCALE) - P.AB_CLIP
-    if half:
-        src, dst = abq.shape[0], l_net_hw.shape[0]
-        m = _ABQ_ZOOM_CACHE.get((src, dst))
-        if m is None:
-            if len(_ABQ_ZOOM_CACHE) >= 8:
-                _ABQ_ZOOM_CACHE.pop(next(iter(_ABQ_ZOOM_CACHE)))
-            # read only by the zoom: one array serves rows and columns
-            m = _ABQ_ZOOM_CACHE[(src, dst)] = cubic_resize_matrix_np(src, dst)
-        a, b = host.zoom2_matrices(a, b, m, m)
-    return host.lab2rgb_u8_planar(np.asarray(l_net_hw, np.float32), a, b)
 
 
 class ColorizeImageBase:
@@ -297,34 +243,6 @@ class ColorizeImageBase:
         self._set_outputs(rgb, out_ab)
         return self.output_rgb
 
-    @spanned("click")
-    def net_forward_table_abq(self, boxes, values, count, half=False):
-        """The table click whose readback is only the uint8-quantized ab
-        prediction ((S,S,2), 2/3 of the frame's bytes; (S/2,S/2,2), 1/6,
-        with ``half``): the frame is composed on the host
-        (:func:`compose_net_abq_host`, from one L readback per image) and
-        differs from the device compose by the ab quantization step (most
-        pixels by 1 LSB or none, a few by more where the sRGB curve is
-        steep; ``half`` also smooths the chroma across hint edges).
-        ``output_ab`` is the requantized ab of that
-        frame, extracted on the host; its device copy is uploaded only when
-        a full-res getter reads it (``_dev_output_ab``). -1 without an
-        image, a net or an abq program."""
-        if not self.img_l_set or not self.net_set:
-            return -1
-        click = getattr(self, "_click_tbl_abq_half" if half
-                        else "_click_tbl_abq", None)
-        if click is None:
-            return -1
-        self._set_hint_mirrors(boxes, values, count)
-        abq, _hints = click(self._dev_l_mc,
-                            *self._dev_table(boxes, values, count))
-        rgb = compose_net_abq_host(self._host_l_net(), abq.cpu().numpy(),
-                                   half=half)
-        self.output_rgb = rgb
-        self._set_out_ab_host_(*host.rgb2lab_u8_ab(rgb))
-        return self.output_rgb
-
     @spanned("click.upload")
     def _dev_table(self, boxes, values, count, h=None, w=None):
         """A click's table (and pixel) as its program takes them. On the
@@ -429,75 +347,6 @@ class ColorizeImageBase:
                 map_div=dist_model.dist_map_div)
         self._set_outputs(rgb, out_ab)
         return win.cpu().numpy(), colors.cpu().numpy()
-
-    @spanned("click")
-    def net_forward_table_win_host(self, boxes, values, count,
-                                   l_win_pad_np, rh_np, rw_np):
-        """The table click with the window frame composed on the host.
-
-        In the default ``rgb`` mode (:func:`net_click_mode`) it reads back
-        the device-composed net frame and composes the window from it
-        (:func:`compose_window_host`, the reference's own host window
-        compose, ref ui/gui_draw.py:280-284); in the ``abq`` modes it takes
-        :meth:`net_forward_table_abq` and composes the window from the same
-        requantized ab planes. All arguments are host arrays. Returns the
-        window frame, or -1."""
-        mode = net_click_mode()
-        if mode != "rgb" and getattr(self, "_click_tbl_abq", None) \
-                is not None:
-            out = self.net_forward_table_abq(boxes, values, count,
-                                             half=(mode == "abq_half"))
-            if isinstance(out, int):
-                return -1
-            a, b = self._out_ab_np
-            aw, bw = host.zoom2_matrices(a, b, rh_np, rw_np)
-            return host.lab2rgb_u8_planar(
-                np.asarray(l_win_pad_np, np.float32)[..., 0], aw, bw)
-        out = self.net_forward_table(boxes, values, count)
-        if isinstance(out, int):
-            return -1
-        return compose_window_host(out, l_win_pad_np, rh_np, rw_np)
-
-    @spanned("click")
-    def net_forward_table_suggest_host(self, boxes, values, count,
-                                       l_win_pad_np, rh_np, rw_np,
-                                       dist_model, h, w, K=9, N=25000):
-        """Dist-session GUI click with the window composed on the host: one
-        program gives the net frame and the suggestion palette packed into
-        one buffer (``pipeline.make_table_click_suggest_program``), read
-        back once; the window frame is composed from the net frame
-        (:func:`compose_window_host`). Returns (win, colors (K+1,3) float in
-        [0,1], the suggestion rows rounded to 1/255), or -1 under the same
-        conditions as :meth:`net_forward_table_win_suggest`."""
-        if not self.img_l_set or not self.net_set:
-            return -1
-        click = getattr(self, "_click_tbl_suggest", None)
-        dist_dev = getattr(dist_model, "_dev_dist", None)
-        if click is None or dist_dev is None:
-            return -1
-        prev = self._dev_output_rgb
-        if prev is None:
-            if self._output_rgb_np is None:
-                return -1
-            prev = self._to_dev(self._output_rgb_np)
-        self._set_hint_mirrors(boxes, values, count)
-        *table, h_dev, w_dev = self._dev_table(boxes, values, count, h, w)
-        with dist_model._generator_lock:
-            packed, out_ab, _hints = click(
-                self._dev_l_net, self._dev_l_mc, *table, dist_dev, h_dev,
-                w_dev, dist_model._dev_pts(), prev, dist_model._generator,
-                K=int(K), N=int(N), map_div=dist_model.dist_map_div)
-        self._dev_output_ab = self._keep(out_ab)
-        packed_np = packed.cpu().numpy()
-        rgb_np = packed_np[:self.Xd]
-        # both forms of the frame: the numpy one read back with the palette,
-        # the device one (a copy: the graph's next replay overwrites
-        # ``packed``) for the next click's palette row, with no upload
-        self._dev_output_rgb = self._keep(packed[:self.Xd])
-        self._output_rgb_np = rgb_np
-        self._set_out_ab_()
-        colors = packed_np[self.Xd, :int(K) + 1].astype(np.float32) / 255.0
-        return compose_window_host(rgb_np, l_win_pad_np, rh_np, rw_np), colors
 
     def net_forward_fullres(self, input_ab, input_mask):
         """Forward + full-res reconstruction: ``net_forward`` followed by
@@ -649,17 +498,6 @@ class ColorizeImageBase:
         self._dev_lab_net = lab                          # (Xd, Xd, 3)
         self._dev_l_net = lab[..., :1].contiguous()      # (Xd, Xd, 1)
         self._img_lab_np = None
-        self._host_l_net_np = None
-
-    def _host_l_net(self) -> np.ndarray:
-        """(Xd, Xd) float L plane for the host composes: only the L plane
-        is read back, once per image, and kept for the session's clicks
-        (the whole Lab mirror serves when something already read it)."""
-        if getattr(self, "_img_lab_np", None) is not None:
-            return self._img_lab_np[0]
-        if getattr(self, "_host_l_net_np", None) is None:
-            self._host_l_net_np = self._dev_l_net[..., 0].cpu().numpy()
-        return self._host_l_net_np
 
     def _set_img_lab_mc_(self):
         self._dev_l_mc = P.center_plane(self._dev_lab_net, self.l_mean,
@@ -721,36 +559,11 @@ class ColorizeImageBase:
     def img_ab_mc(self):
         return self.img_lab_mc[[1, 2]]
 
-    # ``_dev_output_ab`` is a property so the host-composed abq click can
-    # park its requantized ab on the host: the (Xd, Xd, 2) upload happens
-    # only when a full-res getter reads the device copy
-    @property
-    def _dev_output_ab(self):
-        val = self._dev_out_ab_val
-        if val is None and self._out_ab_host_pending is not None:
-            val = self._dev_out_ab_val = self._to_dev(
-                self._out_ab_host_pending)
-        return val
-
-    @_dev_output_ab.setter
-    def _dev_output_ab(self, value):
-        self._dev_out_ab_val = value
-        self._out_ab_host_pending = None
-
     def _set_out_ab_(self):
         # output_ab is the ab of the QUANTIZED uint8 frame's own Lab
         # (computed by the click on the device); numpy mirrors are lazy
         self._out_ab_np = None
         self._out_lab_np = None
-
-    def _set_out_ab_host_(self, a, b):
-        """The abq click's twin of ``_set_out_ab_``: the requantized ab
-        planes come from the host-composed frame; the device copy is
-        uploaded on first read (``_dev_output_ab``)."""
-        self._out_lab_np = None
-        self._out_ab_np = np.stack([a, b])
-        self._dev_out_ab_val = None
-        self._out_ab_host_pending = np.stack([a, b], -1)
 
     @property
     def output_ab(self):
@@ -814,12 +627,6 @@ class ColorizeImageTorch(ColorizeImageBase):
                 fwd, self.Xd, dev)
             self._click_tbl_win_suggest = \
                 P.make_table_click_win_suggest_program(fwd, self.Xd, dev)
-            self._click_tbl_suggest = P.make_table_click_suggest_program(
-                fwd, self.Xd, dev)
-            self._click_tbl_abq = P.make_table_click_abq_program(
-                fwd, self.Xd, device=dev)
-            self._click_tbl_abq_half = P.make_table_click_abq_program(
-                fwd, self.Xd, half=True, device=dev)
         self.net_set = True
 
     def _dist_forward(self, l_mc, ab, mask):
@@ -1119,12 +926,6 @@ class ColorizeImageTorchCaffe(ColorizeImageBase):
         self._click_tbl = P.make_table_click_program(fwd_tbl, self.Xd, dev)
         self._click_tbl_win = P.make_table_click_win_program(
             fwd_tbl, self.Xd, dev)
-        self._click_tbl_suggest = P.make_table_click_suggest_program(
-            fwd_tbl, self.Xd, dev)
-        self._click_tbl_abq = P.make_table_click_abq_program(
-            fwd_tbl, self.Xd, device=dev)
-        self._click_tbl_abq_half = P.make_table_click_abq_program(
-            fwd_tbl, self.Xd, half=True, device=dev)
 
     @spanned("click.upload")
     def _hints3(self) -> torch.Tensor:

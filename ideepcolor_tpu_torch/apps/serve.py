@@ -46,9 +46,9 @@ Where it differs from the JAX server:
   ``probe_cuda_init_s``, ``probe_first_dispatch_s`` and
   ``probe_program_load_s``.
 * ``health()["device"]`` is the card's name, or ``"cpu"``.
-* ``IDEEPCOLOR_NET_CLICK=abq[_half]`` makes net-size session clicks
-  ``abq`` clicks (the uint8-quantized ab read back, the frame composed on
-  the host), as in the JAX server; full-res session clicks stay ``rgb``.
+* A session click reads back the frame composed on the device. The JAX
+  server's host-composed transport (the quantized ab read back) has no
+  counterpart: on the card it was slower than the device compose.
 * ``RecycleGuard.recycle`` releases the card by synchronizing, dropping the
   captured graphs and emptying PyTorch's cache before the exec.
 * The service takes ``device`` (the card unless ``"cpu"``); ``main`` takes
@@ -639,18 +639,8 @@ class ColorizeService:
             if table is not None:
                 # the frame is read back (or, for full-res, copied from
                 # the model's own clone) before the lock is released: the
-                # next session's replay overwrites the graph's outputs.
-                # IDEEPCOLOR_NET_CLICK=abq[_half] takes the abq click, but
-                # not for full-res clicks: the full-res fusion reads the
-                # device ab, which abq would upload again at every click.
-                # Backends without an abq program return -1: rgb then.
-                mode = api.colorize.net_click_mode()
-                result = -1
-                if mode != "rgb" and not fullres:
-                    result = m.net_forward_table_abq(
-                        *table, half=(mode == "abq_half"))
-                if isinstance(result, int):
-                    result = m.net_forward_table(*table)
+                # next session's replay overwrites the graph's outputs
+                result = m.net_forward_table(*table)
             else:                       # >MAX_HINTS: dense fallback
                 result = m.net_forward(*self._hint_planes(hints))
             if isinstance(result, int):
@@ -855,10 +845,6 @@ class ColorizeService:
                 False,):
             sid = self.session_open(body, fast=fast)["id"]
             self.session_click(sid, click)
-            if api.colorize.net_click_mode() != "rgb":
-                # under abq the click above took the abq program; full-res
-                # session clicks take the rgb one: capture it too
-                self.session_click(sid, click, fullres=True)
             if suggest and not fast:
                 self.session_suggest(sid, [], h=self.size // 2,
                                      w=self.size // 2, k=9)

@@ -6,8 +6,8 @@
 // kernel: colorspace transforms, hint rasterization and banded resampling
 // as OpenMP-parallel loops, built with g++ and called through ctypes by
 // ideepcolor_tpu_torch/ops/host.py, for the numpy hint mirrors of every
-// click, the host-composed window and abq frames, and host Lab
-// conversions. The reference delegates the same work to Caffe's C++
+// click and host Lab conversions (the host frame compose is kept as the
+// JAX library's twin). The reference delegates the same work to Caffe's C++
 // engine and to cv2/skimage/scipy C internals (ref
 // data/colorize_image.py:54-58 cv2.resize, :27-36 skimage lab<->rgb,
 // ui/ui_control.py:61-63 cv2.rectangle).

@@ -4,9 +4,11 @@ Counterpart of ``ideepcolor_tpu/ops/host.py``, with the same public names
 and contracts. The C++ source is the port's own copy of the JAX package's,
 same symbols and same arithmetic, so the two libraries give the same bytes.
 It is the CPU side of a click: the numpy hint mirrors of every table click
-(:func:`rasterize_hints`), the host-composed window and ``abq`` frames
-(:func:`rgb2lab_u8_ab`, :func:`zoom2_matrices`, :func:`lab2rgb_u8_planar`)
-and host Lab conversions (:func:`rgb2lab`). It is not a GPU kernel.
+(:func:`rasterize_hints`) and host Lab conversions (:func:`rgb2lab`). It
+also keeps the JAX library's host frame compose (:func:`rgb2lab_u8_ab`,
+:func:`zoom2_matrices`, :func:`lab2rgb_u8_planar`), which no click of the
+port calls: the port composes every frame on the device. It is not a GPU
+kernel.
 
 The library is built at first use with ``g++ -O3 -march=native -fopenmp``
 into ``build/hostops`` beside the package (never into the package), named

@@ -42,14 +42,26 @@ FUNCTIONAL = ("the port's nets are nn.Modules (SIGGRAPHGenerator, "
               "CaffeColorNet) with methods where the JAX package has "
               "functions over a params dict")
 
+HOST_COMPOSED = ("the host-composed click transport (abq and the *_host "
+                 "clicks) is retired: on an H100 each of its clicks "
+                 "measured slower than its device-composed twin, and no "
+                 "caller needs it")
+
 NAMES_WITHOUT_COUNTERPART = {
     "api.colorize": {
-        n: "the port's classes carry the reference's names "
-           "(ColorizeImageTorch, ...), which the JAX module exports as "
-           "aliases of these"
-        for n in ("ColorizeImageJax", "ColorizeImageJaxDist",
-                  "ColorizeImageJaxCaffe", "ColorizeImageJaxCaffeGlobDist",
-                  "ColorizeImageJaxCaffeDist")},
+        **{n: "the port's classes carry the reference's names "
+              "(ColorizeImageTorch, ...), which the JAX module exports as "
+              "aliases of these"
+           for n in ("ColorizeImageJax", "ColorizeImageJaxDist",
+                     "ColorizeImageJaxCaffe",
+                     "ColorizeImageJaxCaffeGlobDist",
+                     "ColorizeImageJaxCaffeDist")},
+        **{n: HOST_COMPOSED for n in (
+            "ColorizeImageBase.net_forward_table_abq",
+            "ColorizeImageBase.net_forward_table_win_host",
+            "ColorizeImageBase.net_forward_table_suggest_host",
+            "compose_window_host", "compose_net_abq_host",
+            "net_click_mode")}},
     "apps.fidelity": {
         "REAL_ENVS": "the port's fidelity targets are its tests against "
                      "JAX, which read no IDEEPCOLOR_REAL_* variable "
@@ -63,7 +75,11 @@ NAMES_WITHOUT_COUNTERPART = {
                        "ops.resize.zoom_with_matrices and the matrix "
                        "builders",
         "requantized_ab": "moved to ops.colorspace.requantized_ab; "
-                          "the clicks take it from K2's fused entry"},
+                          "the clicks take it from K2's fused entry",
+        **{n: HOST_COMPOSED for n in (
+            "AB_CLIP", "AB_Q_SCALE", "quantize_ab_u8",
+            "make_table_click_abq_program",
+            "make_table_click_suggest_program")}},
     "models.caffe_net": {n: FUNCTIONAL for n in (
         "init_params", "apply_main", "apply_dist", "apply_global")},
     "models.layers": {
