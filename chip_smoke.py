@@ -9,10 +9,11 @@ or more each; any failure exits non-zero:
 
 1. environment: Python, torch and CUDA versions, and the card's name and
    power limit as nvidia-smi reports them;
-2. build: the three kernel sources of ideepcolor_tpu_torch/csrc (K1's
+2. build: the four kernel sources of ideepcolor_tpu_torch/csrc (K1's
    library exports the by-value entry and the batched, device-count entry;
    K2's the compose, the fused click entry and the batched compose; K3's
-   the global statistics), one nvcc each, in parallel, timed; then the
+   the global statistics; K4's a SIGGRAPH conv's epilogue), one nvcc each,
+   in parallel, timed; then the
    native host runtime (ideepcolor_tpu_torch/native/hostops.cpp, g++ -O3
    -march=native -fopenmp; it must build: every click's hint mirrors need
    it), its build seconds, its OpenMP threads and its first window compose
@@ -52,7 +53,18 @@ or more each; any failure exits non-zero:
    counts apart by at most one pooled pixel (direct distance against the
    chain's product expansion), the saturation and BGR means within
    K3_MEAN_BOUND, two calls equal bit for bit; timed at 256x256 against
-   its 12 B/px bound, with the plain chain's eager time;
+   its 12 B/px bound, with the plain chain's eager time.
+   K4 (a SIGGRAPH conv's epilogue, in place) against its plain chain on
+   the card, bit for bit, at the main path's shapes (K4_SHAPES: the
+   batch's N=16 channels-last outputs, the click's N=1 NCHW ones, 64
+   channels at 256x256 and 512 at 32x32), each with ReLU and
+   LeakyReLU(0.2), with and without the skip pair, with and without
+   BatchNorm; timed on tensors in turn past the L2 (bias + ReLU and
+   BatchNorm against the 8 B/element bound, the pair against 12), with
+   the plain chain's time. K4 runs on every f32 inference SIGGRAPH forward
+   on the card; bf16 convs, training and recorded forwards, and the CPU
+   keep the eager chain: phase 8 counts K4 per captured click in each
+   precision, phase 13 holds the training steps apart from the eval;
 5. the main path: ColorizeImageTorch(Xd=256) with the bundled full-width
    teacher weights -- load a seeded 1000x750 image, a table click with no
    hint, ten clicks that add hints, a dense click, the full-res, mask and
@@ -374,6 +386,11 @@ S = 256
 FULLRES_HW = (1000, 750)
 K2_SIZES = ((S, S), FULLRES_HW, (1536, 2048))
 K3_SIZES = ((S, S), (1000, 752))
+# (N, C, H, W, channels-last) of K4's checks and times: the batch's
+# N=16 TF32 forward runs channels-last, the f32 click N=1 NCHW
+K4_SHAPES = ((16, 64, S, S, True), (16, 512, 32, 32, True),
+             (1, 64, S, S, False), (1, 512, 32, 32, False))
+K4_TURN_BYTES = 200e6         # K4's timed tensors in turn: 4x the L2
 FRAME_BOUND_LSB = 1          # card vs CPU session, per channel
 FRAME_BOUND_SHARE = 1e-3     # of the pixels of any one frame
 WEIGHTS = "weights/teacher.npz"
@@ -1216,6 +1233,7 @@ def train_phase(entries, dev) -> dict:
     from ideepcolor_tpu_torch.ops import hints
     from ideepcolor_tpu_torch.ops.colorspace import rgb_to_lab
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import conv_epilogue_kernel as k4
     from ideepcolor_tpu_torch.ops.resize import resize_u8_pil_bilinear
     from ideepcolor_tpu_torch.train import device_data as DD
     from ideepcolor_tpu_torch.train import hints_sim as HS
@@ -1452,7 +1470,8 @@ def train_phase(entries, dev) -> dict:
               f"{time.perf_counter() - t0:.2f} s")
 
     # f. eval of the teacher on the held-out images; K2's batched entry
-    # composes every render
+    # composes every render, K4 finishes its inference forwards' convs
+    k4_before_eval = k4.KERNEL.launches
     net = siggraph.as_module(teacher_sd, dev)
     images = ev.load_eval_images(held, EVAL_SIZE)
     t0 = time.perf_counter()
@@ -1484,12 +1503,17 @@ def train_phase(entries, dev) -> dict:
           + f"; AUC {ev.curve_auc(curve):.3f} dB; fidelity {fid}; contact "
           f"sheet {os.path.getsize(grid)} bytes")
     print(f"train and eval on {dev.type}: {time.perf_counter() - t_phase:.1f}"
-          f" s; launches {phase_launches}")
+          f" s; launches {phase_launches}; K4 {k4_before_eval} before the "
+          f"eval (the distillation teacher's f32 inference forwards; the "
+          f"training steps run forward_train, the eager chain), "
+          f"{k4.KERNEL.launches - k4_before_eval} in the eval")
     if on_card:
         if phase_launches[k2.KERNEL_BATCH.name] == 0:
             die("kernel lab_to_rgb_u8_batch was not launched by the eval")
+        if k4.KERNEL.launches == k4_before_eval:
+            die("kernel conv_epilogue was not launched by the eval")
         busy_k = [k.name for k in entries if k.launches
-                  and k is not k2.KERNEL_BATCH]
+                  and k not in (k2.KERNEL_BATCH, k4.KERNEL)]
         if busy_k:
             die(f"kernels {busy_k} launched on the train and eval path")
 
@@ -2950,6 +2974,7 @@ def doors_child(work: str, dev_name: str) -> int:
     from ideepcolor_tpu_torch.ops import hints
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import conv_epilogue_kernel as k4
     from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as k3
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     from ideepcolor_tpu_torch.utils.imageio import encode_png
@@ -2958,7 +2983,7 @@ def doors_child(work: str, dev_name: str) -> int:
     gpu_id = 0 if on_card else -1
     dev = torch.device(dev_name)
     entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-               k2.KERNEL_BATCH, k3.KERNEL)
+               k2.KERNEL_BATCH, k3.KERNEL, k4.KERNEL)
     if on_card:
         build.build_all(entries)                  # built by the parent
     teacher = os.path.join(repo, WEIGHTS)
@@ -3770,14 +3795,16 @@ def main() -> int:
     from ideepcolor_tpu_torch.ops import resize
     from ideepcolor_tpu_torch.ops.cuda import build
     from ideepcolor_tpu_torch.ops.cuda import colorspace_kernel as k2
+    from ideepcolor_tpu_torch.ops.cuda import conv_epilogue_kernel as k4
     from ideepcolor_tpu_torch.ops.cuda import global_stats_kernel as k3
     from ideepcolor_tpu_torch.ops.cuda import hints_kernel as k1
     dev = torch.device("cuda")
     entries = (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-               k2.KERNEL_BATCH, k3.KERNEL)
+               k2.KERNEL_BATCH, k3.KERNEL, k4.KERNEL)
     # the entries each path must put on the card: the API's clicks are
-    # captured graphs, whose rasterizer is K1's device-count entry
-    click_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB)
+    # captured graphs, whose rasterizer is K1's device-count entry, and
+    # their f32 forward finishes each conv with K4
+    click_entries = (k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB, k4.KERNEL)
 
     # 1. environment
     smi = subprocess.run(
@@ -3792,8 +3819,8 @@ def main() -> int:
     # 2. build
     secs = build.build_all(entries)
     print(f"build: {secs:.1f} s for {k1.KERNEL.source}, "
-          f"{k2.KERNEL.source} and {k3.KERNEL.source}")
-    for k in (k1.KERNEL, k2.KERNEL, k3.KERNEL):
+          f"{k2.KERNEL.source}, {k3.KERNEL.source} and {k4.KERNEL.source}")
+    for k in (k1.KERNEL, k2.KERNEL, k3.KERNEL, k4.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.source}: {line.strip()}")
@@ -4192,6 +4219,93 @@ def main() -> int:
         bound_by=b_by, shape=[S, S, 3],
         layout="(H,W,3) f32 contiguous in; (313,), (), (3,) f32 out; "
                "partials then one finishing block")
+
+    # K4: a SIGGRAPH conv's epilogue against its plain chain on the card,
+    # at the main path's shapes, every combination the forward launches
+    def k4_inputs(N, C, H, W, nhwc, seed):
+        fmt = torch.channels_last if nhwc else torch.contiguous_format
+        g = torch.Generator(device=dev).manual_seed(seed)
+        mk = lambda *sh: torch.randn(*sh, generator=g, device=dev)  # noqa
+        bn = torch.nn.BatchNorm2d(C).to(dev).eval().requires_grad_(False)
+        bn.running_mean.copy_(mk(C))
+        bn.running_var.copy_(torch.rand(C, generator=g, device=dev) * 2
+                             + 0.05)
+        bn.weight.data.copy_(mk(C))
+        bn.bias.data.copy_(mk(C))
+        return (mk(N, C, H, W).contiguous(memory_format=fmt),
+                mk(N, C, H, W).contiguous(memory_format=fmt), mk(C), mk(C),
+                bn)
+
+    k4_err = 0.0
+    for N, C, H, W, nhwc in K4_SHAPES:
+        y0, p0, bias, pbias, bn = k4_inputs(N, C, H, W, nhwc, C * 100 + N)
+        for slope in (None, 0.2):
+            for pair in (False, True):
+                for with_bn in (False, True):
+                    kw = dict(pair=p0 if pair else None,
+                              pair_bias=pbias if pair else None,
+                              negative_slope=slope,
+                              bn=bn if with_bn else None)
+                    want = k4.conv_epilogue_plain(y0, bias, **kw)
+                    got = k4.conv_epilogue(y0.clone(), bias, **kw)
+                    k4_err = max(k4_err, float((got - want).abs().max()))
+                    if not torch.equal(got, want):
+                        die(f"K4 differs from its plain chain at {N}x{C}x"
+                            f"{H}x{W} {'NHWC' if nhwc else 'NCHW'}, slope "
+                            f"{slope}, pair {pair}, BatchNorm {with_bn}: "
+                            f"{int((got != want).sum())} values")
+        del y0, p0, want, got
+    forms = ", ".join(f"N={N} {C}x{H}x{W} {'NHWC' if nhwc else 'NCHW'}"
+                      for N, C, H, W, nhwc in K4_SHAPES)
+    print(f"K4 check: {forms}; ReLU and LeakyReLU(0.2), with and without "
+          f"the pair, with and without BatchNorm: bit for bit with the "
+          f"plain chain")
+
+    def k4_turns(N, C, H, W, nhwc, pair, with_bn, plain=False):
+        """One K4 launch (or one plain chain) per call, on tensors in
+        turn, enough of them that each is out of the L2 when its turn
+        comes; an identity BatchNorm, so in-place repeats stay finite."""
+        n = max(1, int(-(-K4_TURN_BYTES // (N * C * H * W * 4))))
+        turns = [k4_inputs(N, C, H, W, nhwc, 900 + i)[:4] for i in range(n)]
+        bn = (torch.nn.BatchNorm2d(C).to(dev).eval().requires_grad_(False)
+              if with_bn else None)
+        at = [0]
+        fn = k4.conv_epilogue_plain if plain else k4.conv_epilogue
+
+        def call():
+            y, p, b, pb = turns[at[0] % n]
+            at[0] += 1
+            return fn(y, b, pair=p if pair else None,
+                      pair_bias=pb if pair else None, bn=bn)
+        return call
+
+    k4_times = {}
+    for N, C, H, W, nhwc in K4_SHAPES:
+        form = f"N={N} {C}x{H}x{W} {'NHWC' if nhwc else 'NCHW'}"
+        for label, pair, with_bn in (("bias+ReLU", False, False),
+                                     ("+BN", False, True),
+                                     ("pair", True, False)):
+            if not nhwc and label != "+BN":     # the click's: BatchNorm
+                continue
+            ms = device_ms(k4_turns(N, C, H, W, nhwc, pair, with_bn))
+            p_ms = device_ms(k4_turns(N, C, H, W, nhwc, pair, with_bn,
+                                      plain=True))
+            b_ms, b_by = bound((12 if pair else 8) * N * C * H * W)
+            k4_times[form, label] = (ms, p_ms, b_ms, b_by)
+            torch.cuda.empty_cache()
+    print("K4 time (CUDA graph of 20 launches, median of 50 replays; "
+          "tensors in turn past the L2; bound 8 B/element, the pair 12, "
+          "at 3.35 TB/s): " + "; ".join(
+              f"{form} {label}: kernel {ms:.5f} ms, plain chain {p_ms:.5f} "
+              f"ms, bound {b_ms:.5f} ms, share of bound {b_ms / ms:.3f}"
+              for (form, label), (ms, p_ms, b_ms, _) in k4_times.items()))
+    N, C, H, W, _ = K4_SHAPES[0]
+    ms, p_ms, b_ms, b_by = k4_times[f"N={N} {C}x{H}x{W} NHWC", "bias+ReLU"]
+    report[k4.KERNEL.name] = dict(
+        max_abs_err=k4_err, ms=ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, shape=[N, C, H, W],
+        layout="(N,C,H,W) f32 channels-last, in place: bias + ReLU, one "
+               "read and one write; tensors in turn past the L2")
 
     # 5. the main path on the card, launches counted; then the CPU session
     def session(device):
@@ -4859,6 +4973,20 @@ def main() -> int:
                 or st["psnr"] < bar["psnr"] or st["dab"] > bar["dab"]
                 or st["map"] > bar["map"]):
             die(f"{mode} session is outside its bounds against f32: {st}")
+    # which forwards K4 finishes: the f32 and TF32 ones; a bf16 forward
+    # keeps the eager chain (its convs add their bias in bf16)
+    k4_click = {}
+    for mode, (pm, _pd) in modes.items():
+        before = k4.KERNEL.launches
+        pm.net_forward_table(*tables[-1])
+        k4_click[mode] = k4.KERNEL.launches - before
+    print(f"K4 launches per captured table click by precision: {k4_click} "
+          f"(bf16 convs keep the eager chain: "
+          f"SIGGRAPHGenerator._fuses_epilogues)")
+    if k4_click["bf16"] != 0 or not k4_click["f32"] or \
+            not k4_click["default"]:
+        die(f"K4 per click by precision: {k4_click}; want launches at f32 "
+            f"and default, none at bf16")
     mode_ms = {mode: [] for mode in modes}
     for _ in range(2):
         for mode, (pm, _pd) in modes.items():
@@ -5037,7 +5165,7 @@ def main() -> int:
     dense_out = B.colorize_batch(m.net, imgs)
     engine_launches = {k.name: k.launches for k in entries}
     for k in (k1.KERNEL, k1.KERNEL_BATCH, k2.KERNEL, k2.KERNEL_AB,
-              k2.KERNEL_BATCH):
+              k2.KERNEL_BATCH, k4.KERNEL):
         if engine_launches[k.name] == 0:
             die(f"kernel {k.name} was not launched on the engines' path")
     check_interactive()

@@ -40,6 +40,10 @@ What a graph fixes, and what this module does about it:
   the device nor empties a cache, so one thread may capture a program
   (``GraphProgram.prepare``, ahead of its first call) while another
   replays others; the kernel nodes it records are counted per thread.
+* garbage. Python's cyclic collector is held off while a graph is
+  captured: a collection there may free another graph (a closed session's
+  program in a reference cycle), a call the capture does not permit, which
+  invalidates it.
 
 No fallback: a capture that fails raises; nothing retries eagerly.
 """
@@ -47,6 +51,8 @@ No fallback: a capture that fails raises; nothing retries eagerly.
 from __future__ import annotations
 
 import contextlib
+import gc
+import threading
 import weakref
 
 import numpy as np
@@ -58,6 +64,28 @@ from ..utils.profiling import annotate, spanned
 
 CACHE_MAX = 8     # graphs a program keeps, FIFO
 _WARMUP = 2       # eager runs on a side stream before a capture
+
+# captures in progress in any thread, and whether the collector ran before
+_GC_HELD = {"count": 0, "was_enabled": False}
+_GC_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_held():
+    """Python's cyclic garbage collector disabled until the last capture
+    in progress ends, then as it was before the first."""
+    with _GC_LOCK:
+        if _GC_HELD["count"] == 0:
+            _GC_HELD["was_enabled"] = gc.isenabled()
+            gc.disable()
+        _GC_HELD["count"] += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _GC_HELD["count"] -= 1
+            if _GC_HELD["count"] == 0 and _GC_HELD["was_enabled"]:
+                gc.enable()
 _RING = 8         # pinned host buffers of a TableStage
 
 
@@ -139,7 +167,7 @@ class GraphProgram:
         with torch.cuda.stream(side):  # kernels build, cuDNN picks, pools fill
             for _ in range(_WARMUP):
                 self.fn(*bufs, **options)
-            with build.recording_nodes() as nodes:
+            with build.recording_nodes() as nodes, _collector_held():
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     outs = self.fn(*bufs, **options)

@@ -28,6 +28,14 @@ relayout. Details carried over exactly:
   contiguous NCHW (:func:`activation_format`). The stored weights stay
   NCHW either way; a channels-last forward takes a kept channels-last copy
   of each conv's weight;
+* epilogues: an f32 inference forward on the card runs each conv of
+  model1-model10 without its bias and finishes its output in place with one
+  launch of kernel K4 (``ops/cuda/conv_epilogue_kernel.py``): the bias, the
+  skip sum where the next block takes one, the activation and the block's
+  BatchNorm, 26 launches a forward in place of 67 eager ones. The CPU, bf16
+  convs, training mode and a forward autograd records keep the eager chain
+  of the Sequentials (:meth:`SIGGRAPHGenerator._fuses_epilogues`); the
+  module tree and its state-dict keys are the same either way;
 * training: :func:`forward_train` (``apply_train``) runs the same net over
   a flat dict of tensors (:func:`train_params`) and returns the singly
   scaled regression output and the raw class logits at H/4; its BatchNorm
@@ -48,6 +56,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import conv_precision
+from ..ops.cuda.conv_epilogue_kernel import conv_epilogue
 from ..ops.resize import upsample_nearest
 from ..utils.profiling import annotate
 from . import layers as L
@@ -75,6 +84,11 @@ _BLOCKS: list[tuple[str, list[int], int | None]] = [
     ("model_out", [0], None),
 ]
 _DECONV_BLOCKS = {"model8up", "model9up", "model10up"}
+# the three skip sums: the block each feeds -> (its upsampling block, its
+# shortcut block)
+_JOINS = {"model8": ("model8up", "model3short8"),
+          "model9": ("model9up", "model2short9"),
+          "model10": ("model10up", "model1short10")}
 
 FULL_CHANNELS = (64, 128, 256, 512)
 
@@ -127,6 +141,11 @@ class _Conv2d(_LayoutWeight, nn.Conv2d):
         return self._conv_forward(x, self._weight_for(x),
                                   self.bias).to(torch.float32)
 
+    def forward_without_bias(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv alone, f32 weights and input: its bias is left to the
+        caller's epilogue (K4)."""
+        return self._conv_forward(x, self._weight_for(x), None)
+
 
 class _ConvTranspose2d(_LayoutWeight, nn.ConvTranspose2d):
     """As :class:`_Conv2d`, for the three k4 s2 p1 upsampling convs."""
@@ -137,6 +156,12 @@ class _ConvTranspose2d(_LayoutWeight, nn.ConvTranspose2d):
             x, self._weight_for(x), self.bias, self.stride, self.padding,
             self.output_padding, self.groups,
             self.dilation).to(torch.float32)
+
+    def forward_without_bias(self, x: torch.Tensor) -> torch.Tensor:
+        """As :meth:`_Conv2d.forward_without_bias`."""
+        return F.conv_transpose2d(
+            x, self._weight_for(x), None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation)
 
 
 def _conv(cin: int, cout: int, k: int = 3, dilation: int = 1) -> nn.Conv2d:
@@ -233,6 +258,18 @@ class SIGGRAPHGenerator(nn.Module):
                     t.data = t.data.to(dt).to(torch.float32)
         return self
 
+    def _fuses_epilogues(self, x: torch.Tensor) -> bool:
+        """Whether K4 finishes each conv of this forward: on a CUDA device,
+        f32 activations and f32 convs, inference BatchNorm, no gradient
+        recorded. The CPU, bf16 convs (:meth:`cast_weights_`), a module in
+        training mode and a forward that autograd records keep the eager
+        chain of the Sequentials."""
+        return (x.device.type == "cuda" and x.dtype == torch.float32
+                and self.model1[0].weight.dtype == torch.float32
+                and not self.training
+                and not (torch.is_grad_enabled() and (x.requires_grad or any(
+                    p.requires_grad for p in self.parameters()))))
+
     def forward(self, input_A: torch.Tensor, input_B: torch.Tensor,
                 mask_B: torch.Tensor, maskcent: float = 0.0,
                 dist: bool = False, dist_lowres: bool = False,
@@ -268,17 +305,20 @@ class SIGGRAPHGenerator(nn.Module):
         # takes each conv's kept channels-last copy (:class:`_LayoutWeight`)
         x = torch.cat([input_A / 100.0, input_B / 110.0, mask_B - maskcent],
                       dim=1).contiguous(memory_format=fmt)
-        conv1_2 = self.model1(x)
-        conv2_2 = self.model2(conv1_2[:, :, ::2, ::2])
-        conv3_3 = self.model3(conv2_2[:, :, ::2, ::2])
-        conv4_3 = self.model4(conv3_3[:, :, ::2, ::2])
-        conv7_3 = self.model7(self.model6(self.model5(conv4_3)))
-        conv8_3 = self.model8(self.model8up(conv7_3)
-                              + self.model3short8(conv3_3))
-        conv9_3 = self.model9(self.model9up(conv8_3)
-                              + self.model2short9(conv2_2))
-        conv10_2 = self.model10(self.model10up(conv9_3)
-                                + self.model1short10(conv1_2))
+        if self._fuses_epilogues(x):
+            conv8_3, conv10_2 = self._k4_forward(x)
+        else:
+            conv1_2 = self.model1(x)
+            conv2_2 = self.model2(conv1_2[:, :, ::2, ::2])
+            conv3_3 = self.model3(conv2_2[:, :, ::2, ::2])
+            conv4_3 = self.model4(conv3_3[:, :, ::2, ::2])
+            conv7_3 = self.model7(self.model6(self.model5(conv4_3)))
+            conv8_3 = self.model8(self.model8up(conv7_3)
+                                  + self.model3short8(conv3_3))
+            conv9_3 = self.model9(self.model9up(conv8_3)
+                                  + self.model2short9(conv2_2))
+            conv10_2 = self.model10(self.model10up(conv9_3)
+                                    + self.model1short10(conv1_2))
         out_reg = torch.tanh(self.model_out(conv10_2)) * 110.0
         if not dist:
             return out_reg
@@ -286,6 +326,54 @@ class SIGGRAPHGenerator(nn.Module):
         if not dist_lowres:
             out_cl = upsample_nearest(out_cl, 4, h_axis=-2, w_axis=-1)
         return out_reg * 110.0, out_cl
+
+    def _k4_forward(self, x: torch.Tensor):
+        """model1-model10 wired as :meth:`_forward`'s eager chain wires
+        them, each conv run without its bias and finished in place by one
+        K4 launch: 26 a forward. Returns conv8_3 and conv10_2."""
+        b, join = self._k4_block, self._k4_join
+        conv1_2 = b("model1", x)
+        conv2_2 = b("model2", conv1_2[:, :, ::2, ::2])
+        conv3_3 = b("model3", conv2_2[:, :, ::2, ::2])
+        conv4_3 = b("model4", conv3_3[:, :, ::2, ::2])
+        conv7_3 = b("model7", b("model6", b("model5", conv4_3)))
+        conv8_3 = b("model8", join("model8", conv7_3, conv3_3))
+        conv9_3 = b("model9", join("model9", conv8_3, conv2_2))
+        conv10_2 = b("model10", join("model10", conv9_3, conv1_2))
+        return conv8_3, conv10_2
+
+    def _k4_block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Block ``name`` by its ``_BLOCKS`` row: each conv without its
+        bias, then one K4 launch with the bias, the activation module that
+        follows the conv and, after the last conv, the block's BatchNorm
+        where it has one. The conv indices of a block in ``_RELU_LED``
+        start at 1: :meth:`_k4_join` applied its leading ReLU."""
+        _, convs, bn = _BLOCK[name]
+        seq = getattr(self, name)
+        for i in convs:
+            x = conv_epilogue(
+                seq[i].forward_without_bias(x), seq[i].bias,
+                negative_slope=_slope(seq[i + 1]),
+                bn=seq[bn] if bn is not None and i == convs[-1] else None)
+        return x
+
+    def _k4_join(self, name: str, x: torch.Tensor,
+                 s: torch.Tensor) -> torch.Tensor:
+        """The skip sum that feeds block ``name``, ``up(x) + short(s)``
+        (``_JOINS``), and the block's leading ReLU (its module 0), as one
+        K4 launch over the upsampling conv's output."""
+        up, short = (getattr(self, b)[0] for b in _JOINS[name])
+        return conv_epilogue(up.forward_without_bias(x), up.bias,
+                             pair=short.forward_without_bias(s),
+                             pair_bias=short.bias,
+                             negative_slope=_slope(getattr(self, name)[0]))
+
+
+def _slope(act: nn.Module) -> float | None:
+    """K4's activation for the module ``act``: None for a ReLU, the
+    negative slope of a LeakyReLU."""
+    return act.negative_slope if isinstance(act, nn.LeakyReLU) else None
+
 
 
 def as_module(weights, device=None) -> SIGGRAPHGenerator:

@@ -398,3 +398,53 @@ def test_checkpoint_forms_refused_with_a_way_out(tmp_path):
     torch.save(net.state_dict(), pth)         # the state dict loads
     sd = siggraph.load_state_dict_file(pth)
     assert all(torch.equal(sd[k], v) for k, v in net.state_dict().items())
+
+
+@pytest.mark.parametrize("raises", [False, True], ids=["ok", "raises"])
+def test_capture_holds_the_garbage_collector(monkeypatch, raises):
+    """A collection inside a capture may free another graph, a call the
+    capture does not permit: the collector is off from ``capture_begin`` to
+    ``capture_end`` (not in the warm-up), and as it was afterwards, also
+    when the captured function raises."""
+    import contextlib
+    import gc
+
+    from ideepcolor_tpu_torch.engine import graphs
+
+    seen = []
+
+    class FakeGraph:
+        def capture_begin(self, **kw):
+            seen.append(("begin", gc.isenabled()))
+
+        def capture_end(self):
+            seen.append(("end", gc.isenabled()))
+
+    class FakeStream:
+        def wait_stream(self, other):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "Stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "current_stream", FakeStream)
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    was = gc.isenabled()
+    calls = []
+
+    def fn():
+        calls.append(gc.isenabled())
+        if raises and len(calls) > graphs._WARMUP:
+            raise ValueError("in the capture")
+        return torch.zeros(1)
+
+    prog = graphs.GraphProgram(fn)
+    if raises:
+        with pytest.raises(ValueError, match="in the capture"):
+            prog.prepare()
+    else:
+        prog.prepare()
+        assert prog.captures == 1
+    assert calls == [was] * graphs._WARMUP + [False]
+    assert seen == [("begin", False), ("end", False)]
+    assert gc.isenabled() == was
