@@ -3402,7 +3402,7 @@ def programs_phase(entries, dev, m, d) -> dict:
         d._dev_dist, *d._dev_table(np.zeros((0, 4), np.int32),
                                    np.zeros((0, 2), np.float32), 0, h, w)[3:],
         d._dev_pts(), d._generator, K=SUGGEST_K, N=25000,
-        map_div=d.dist_map_div).cpu().numpy()
+        map_div=d.dist_map_div)[0].cpu().numpy()
     for name, c, cf in (("captured", centers, conf),
                         ("eager", e_out[:, :2], e_out[:, 2])):
         if (c.shape != (SUGGEST_K, 2) or np.abs(c).max() > 110

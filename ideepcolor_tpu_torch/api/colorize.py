@@ -34,11 +34,13 @@ runtime (``ops.host``); K1's planes are never read back for them. Every
 frame a click returns, the net frame and the window frame, is composed on
 the device.
 
-Under a profiler each click entry is the span ``click``, with the spans
-``click.hints`` (the host's hint mirrors and normalization),
-``click.upload`` (the table or hint planes onto the device) and
-``click.readback`` (the frame read back) inside it
-(``utils.profiling``).
+Under a profiler each click entry (``predict_dist_table`` among them) is
+the span ``click``, with the spans ``click.hints`` (the host's hint mirrors
+and normalization), ``click.upload`` (the table or hint planes onto the
+device) and ``click.readback`` (the frame read back) inside it; each
+suggestion entry (``get_ab_reccs``, ``suggest_table``) is the span
+``suggest``, with the ``click.hints`` and ``click.upload`` of its table and
+pixel inside it (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -695,6 +697,11 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         self.A = self.B = 23
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self._dev_dist = None
+        # the uniform numbers of the newest suggestion, (N,) for the sampler
+        # and (RESTARTS, K) for the seeding: the suggest program's own output
+        # buffers, kept on the device, from which a caller can work the
+        # palette out again (``ops.kmeans``'s deterministic cores)
+        self._dev_draws = None
         self._dist_np = None
         self._suggest_prog = P.make_suggest_program(self.device)
         self._entropy_prog = P.make_entropy_program(self.device)
@@ -718,6 +725,7 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         self.dist_ab_set = True
         self._dist_np = None          # the numpy mirrors are lazy
 
+    @spanned("click")
     def predict_dist_table(self, boxes, values, count):
         """The per-image suggestion forward from a hint table: K1
         rasterizes, the distribution map is set on the device, and nothing
@@ -785,23 +793,26 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         # on another stream reads them (this thread waits, no other does)
         stream.synchronize()
 
+    @spanned("suggest")
     def suggest_table(self, boxes, values, count, h, w, K=9, N=25000):
         """Serving suggest: hint-table dist forward + CMF sampling +
         k-means + uint8 palette at pixel (h, w).
 
         Returns ``(colors_u8 (K,3), conf (K,))``. The distribution map
         stays on the device for later ``get_ab_reccs`` /
-        ``compute_entropy``. -1 on unset image or net."""
+        ``compute_entropy``, and the chain's uniform numbers beside it
+        (``_dev_draws``). -1 on unset image or net."""
         if not (self.img_l_set and self.net_set):
             return -1
         prog = self.ensure_suggest_program(K, N)
         self._set_hint_mirrors(boxes, values, count)
         table = self._dev_table(boxes, values, count, h, w)
         with self._generator_lock:
-            dist_map, colors, conf, _hints = prog(
+            dist_map, colors, conf, _hints, *draws = prog(
                 self._dev_l_net, self._dev_l_mc, *table, self._dev_pts(),
                 self._generator)
         self._set_dist(self._keep(dist_map))
+        self._dev_draws = tuple(draws)
         return colors.cpu().numpy(), conf.cpu().numpy()
 
     def net_forward(self, input_ab, input_mask):
@@ -829,13 +840,15 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
     def dist_ab_grid(self):
         return self.dist_ab_full.reshape((self.A, self.B, self.Xd, self.Xd))
 
+    @spanned("suggest")
     def get_ab_reccs(self, h, w, K=5, N=25000, return_conf=False):
         """K color suggestions at net pixel (h, w): the suggest program on
         the map's pixel (h // dist_map_div, w // dist_map_div; the SIGGRAPH
         map is at Xd/4, so that is its nearest-x4 lookup). The pixel
         travels through the model's ``graphs.TableStage``, so one graph per
         (K, N) serves every pixel; centers and confidences come back in one
-        readback."""
+        readback, and the chain's uniform numbers stay on the device
+        (``_dev_draws``)."""
         if not self.dist_ab_set:
             print('Need to set prediction first')
             return 0
@@ -843,10 +856,12 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
             np.zeros((0, 4), np.int32), np.zeros((0, 2), np.float32), 0,
             h, w)
         with self._generator_lock:
-            out = self._suggest_prog(
+            out, *draws = self._suggest_prog(
                 self._dev_dist, h_dev, w_dev, self._dev_pts(),
                 self._generator, K=int(K), N=int(N),
-                map_div=self.dist_map_div).cpu().numpy()
+                map_div=self.dist_map_div)
+            out = out.cpu().numpy()
+        self._dev_draws = tuple(draws)
         centers, conf = out[:, :2], out[:, 2]
         return (centers, conf) if return_conf else centers
 
@@ -1037,6 +1052,7 @@ class ColorizeImageTorchCaffeDist(ColorizeImageTorchCaffe):
         self.A = self.B = 23
         self._generator = torch.Generator(device=self.device).manual_seed(0)
         self._dev_dist = None
+        self._dev_draws = None        # as the SIGGRAPH dist class's
         self._dist_np = None
         self._dist_full_np = None
         self._suggest_prog = P.make_suggest_program(self.device)

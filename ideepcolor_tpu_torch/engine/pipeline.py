@@ -196,28 +196,35 @@ def pixel_at(t: torch.Tensor, h, w) -> torch.Tensor:
 
 
 def suggest_at(dist_S: torch.Tensor, h, w, centers_tbl: torch.Tensor,
-               generator: torch.Generator, K: int = 5, N: int = 25000):
+               generator: torch.Generator, K: int = 5, N: int = 25000,
+               return_draws: bool = False):
     """Color suggestions at pixel (h, w) of a (H,W,Q) distribution map:
     the gather, CMF sampling and k-means run on the map's device and give
-    (K,2) centers and (K,) confidences there. h and w are Python ints or
-    device index tensors (:func:`pixel_at`); nothing is read back."""
+    (K,2) centers and (K,) confidences there, and with ``return_draws`` the
+    uniform numbers drawn (``km.ab_recommendations``). h and w are Python
+    ints or device index tensors (:func:`pixel_at`); nothing is read
+    back."""
     return km.ab_recommendations(pixel_at(dist_S, h, w), centers_tbl,
-                                 generator, K=K, N=N)
+                                 generator, K=K, N=N,
+                                 return_draws=return_draws)
 
 
 def make_suggest_program(device=None):
     """``get_ab_reccs``'s chain as a program: ``sugg(dist_S, h, w,
-    centers_tbl, generator, K=5, N=25000, map_div=1)`` gives (K,3): the
-    (K,2) centers and the (K,) confidences as a third column, one buffer
-    for one readback. h and w are the pixel in net coordinates, Python ints
-    or the device tensors of a ``graphs.TableStage`` (a graph reads the
-    live pixel); the map's pixel is (h // map_div, w // map_div)."""
+    centers_tbl, generator, K=5, N=25000, map_div=1)`` gives ``(out (K,3),
+    u_bins (N,), u_seeds (RESTARTS,K))``: the (K,2) centers and the (K,)
+    confidences as a third column, one buffer for one readback, and the
+    uniform numbers the chain drew, which stay on the device. h and w are
+    the pixel in net coordinates, Python ints or the device tensors of a
+    ``graphs.TableStage`` (a graph reads the live pixel); the map's pixel
+    is (h // map_div, w // map_div)."""
 
     @torch.no_grad()
     def sugg(dist_S, h, w, centers_tbl, generator, K=5, N=25000, map_div=1):
-        centers, conf = suggest_at(dist_S, h // map_div, w // map_div,
-                                   centers_tbl, generator, K=K, N=N)
-        return torch.cat([centers, conf[:, None]], 1)
+        centers, conf, u_bins, u_seeds = suggest_at(
+            dist_S, h // map_div, w // map_div, centers_tbl, generator, K=K,
+            N=N, return_draws=True)
+        return torch.cat([centers, conf[:, None]], 1), u_bins, u_seeds
 
     return graphs.program(sugg, device)
 
@@ -295,22 +302,25 @@ def make_table_suggest_program(dist_fwd, size: int, K: int = 9,
     ``dist_fwd(l_mc (S,S,1), ab (2,S,S), mask (1,S,S))`` gives the
     (S/map_div, S/map_div, Q) distribution map. ``sugg(l_net, l_mc, boxes,
     values, count, h, w, centers_tbl, generator)`` gives ``(dist_map,
-    colors (K,3) uint8, conf (K,), hints)``; the map is returned so the
-    caller keeps it for later lookups without another forward."""
+    colors (K,3) uint8, conf (K,), hints, u_bins (N,), u_seeds
+    (RESTARTS,K))``; the map is returned so the caller keeps it for later
+    lookups without another forward, and the uniform numbers the chain drew
+    stay on the device beside it."""
 
     @torch.no_grad()
     def sugg(l_net, l_mc, boxes, values, count, h, w, centers_tbl,
              generator):
         hints = k1.rasterize_hints_planar(boxes, values, count, size)
         dist_map = dist_fwd(l_mc, hints[:2], hints[2:])
-        centers, conf = suggest_at(dist_map, h // map_div, w // map_div,
-                                   centers_tbl, generator, K=K, N=N)
+        centers, conf, u_bins, u_seeds = suggest_at(
+            dist_map, h // map_div, w // map_div, centers_tbl, generator, K=K,
+            N=N, return_draws=True)
         # the palette goes to K2 as a 1 x K image: as (K, 1) every pixel
         # would be a row end and take the kernel's scalar path
         lab = _palette_lab(l_net, h, w, centers)
         colors = k2.lab_to_rgb_u8_hwc(lab[None, :, 0], lab[None, :, 1],
                                       lab[None, :, 2])[0]
-        return dist_map, colors, conf, hints
+        return dist_map, colors, conf, hints, u_bins, u_seeds
 
     return graphs.program(sugg, device)
 

@@ -10,7 +10,9 @@ the raw samples.
 Randomness comes from a ``torch.Generator`` on the tensors' device, passed
 in where the JAX functions take a key. Each random function is split: its
 deterministic core takes the uniform numbers (:func:`bins_from_uniform`,
-:func:`seeds_from_uniform`) or the seeds (:func:`_lloyd`) as input.
+:func:`seeds_from_uniform`, :func:`kmeans_from_uniform`) or the seeds
+(:func:`_lloyd`) as input, and :func:`ab_recommendations` can hand back the
+numbers it drew, so a caller can work its answer out again.
 
 Run eagerly (``get_ab_reccs``) the chain's cost is its launches; inside a
 click it is part of the click's captured CUDA graph (``engine.graphs``). The
@@ -24,6 +26,8 @@ by a device index.
 from __future__ import annotations
 
 import torch
+
+RESTARTS = 4      # k-means restarts of a suggestion, the best one kept
 
 
 def bins_from_uniform(pdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -76,15 +80,6 @@ def seeds_from_uniform(pts: torch.Tensor, w: torch.Tensor,
     return torch.stack(seeds, 1)
 
 
-def _kmeanspp_init(pts: torch.Tensor, w: torch.Tensor,
-                   generator: torch.Generator, K: int,
-                   n_init: int = 1) -> torch.Tensor:
-    """(n_init, K, C) k-means++ seeds (sklearn's strategy, which the
-    reference relies on for good suggestion clusters)."""
-    u = torch.rand((n_init, K), generator=generator, device=pts.device)
-    return seeds_from_uniform(pts, w, u)
-
-
 def _lloyd(pts: torch.Tensor, w: torch.Tensor, centers0: torch.Tensor,
            K: int, iters: int):
     """``iters`` Lloyd steps from ``centers0`` (..., K, C), any leading
@@ -109,19 +104,14 @@ def _lloyd(pts: torch.Tensor, w: torch.Tensor, centers0: torch.Tensor,
     return centers, onehot.sum(-2), inertia
 
 
-def weighted_kmeans(points: torch.Tensor, weights: torch.Tensor,
-                    generator: torch.Generator, K: int = 5, iters: int = 30,
-                    n_init: int = 4):
-    """Weighted k-means with k-means++ seeding and restarts.
-
-    points (P, 2); weights (P,) nonnegative. The ``n_init`` restarts run as
-    one batch; the lowest inertia wins (sklearn's n_init behavior, which the
-    reference depends on). Returns (centers (K, 2) sorted by cluster
-    occupancy, descending; occupancy fractions (K,))."""
+def kmeans_from_uniform(points: torch.Tensor, weights: torch.Tensor,
+                        u: torch.Tensor, iters: int = 30):
+    """:func:`weighted_kmeans`'s deterministic core: the (restarts, K)
+    uniform numbers u give the k-means++ seeds of each restart."""
     pts = points.to(torch.float32)
     w = weights.to(torch.float32)
-    c0 = _kmeanspp_init(pts, w, generator, K, n_init)
-    centers_all, mass_all, inertia_all = _lloyd(pts, w, c0, K, iters)
+    c0 = seeds_from_uniform(pts, w, u)
+    centers_all, mass_all, inertia_all = _lloyd(pts, w, c0, u.shape[1], iters)
     # a gather by a device index: indexing with the 0-d tensor itself would
     # read it back to the host, which also forbids capture in a CUDA graph
     best = inertia_all.argmin().reshape(1)
@@ -131,12 +121,34 @@ def weighted_kmeans(points: torch.Tensor, weights: torch.Tensor,
     return centers[order], mass[order] / w.sum()
 
 
+def weighted_kmeans(points: torch.Tensor, weights: torch.Tensor,
+                    generator: torch.Generator, K: int = 5, iters: int = 30,
+                    n_init: int = RESTARTS):
+    """Weighted k-means with k-means++ seeding (sklearn's strategy, which
+    the reference relies on for good suggestion clusters) and restarts.
+
+    points (P, 2); weights (P,) nonnegative. The ``n_init`` restarts run as
+    one batch; the lowest inertia wins (sklearn's n_init behavior, which the
+    reference depends on). Returns (centers (K, 2) sorted by cluster
+    occupancy, descending; occupancy fractions (K,))."""
+    u = torch.rand((n_init, K), generator=generator, device=points.device)
+    return kmeans_from_uniform(points, weights, u, iters)
+
+
 def ab_recommendations(dist: torch.Tensor, centers_tbl: torch.Tensor,
                        generator: torch.Generator, K: int = 5,
-                       N: int = 25000, iters: int = 30):
+                       N: int = 25000, iters: int = 30,
+                       return_draws: bool = False):
     """The suggestion chain for one pixel's (Q,) bin distribution: sample N
     draws from the pdf, map to the ab bin centers, k-means(K), sort by
-    occupancy. Returns (K, 2) ab centers + (K,) confidence fractions."""
-    counts = sample_bins(dist, generator, N=N)
-    return weighted_kmeans(centers_tbl.to(torch.float32), counts, generator,
-                           K=K, iters=iters)
+    occupancy. Returns (K, 2) ab centers + (K,) confidence fractions; with
+    ``return_draws`` also the uniform numbers the chain drew, (N,) for the
+    sampler and (RESTARTS, K) for the seeding, from which
+    :func:`bins_from_uniform` and :func:`kmeans_from_uniform` give the same
+    answer again."""
+    u_bins = torch.rand(N, generator=generator, device=dist.device)
+    u_seeds = torch.rand((RESTARTS, K), generator=generator,
+                         device=centers_tbl.device)
+    out = kmeans_from_uniform(centers_tbl, bins_from_uniform(dist, u_bins),
+                              u_seeds, iters)
+    return (*out, u_bins, u_seeds) if return_draws else out

@@ -14,10 +14,14 @@ in memory beside the card's kernel and copy events, on their clock, and
 :func:`device_trace` writes them out with them. The program opens spans at
 its layer boundaries:
 
-* ``click`` around each public click entry of ``api/colorize.py``, and
-  inside it ``click.hints`` (the host's hint mirrors and their
-  normalization), ``click.upload`` (a click's table or hint planes onto the
-  card) and ``click.readback`` (the frame read back);
+* ``click`` around each public click entry of ``api/colorize.py``
+  (``predict_dist_table``'s forward too), and inside it ``click.hints``
+  (the host's hint mirrors and their normalization), ``click.upload`` (a
+  click's table or hint planes onto the card) and ``click.readback`` (the
+  frame read back);
+* ``suggest`` around each suggestion entry of ``api/colorize.py``
+  (``get_ab_reccs``, ``suggest_table``), with the ``click.hints`` and
+  ``click.upload`` of its table and pixel inside it;
 * ``batch`` around ``engine.batch.colorize_batch_table`` and
   ``colorize_batch``, and inside it ``batch.upload`` and ``batch.readback``;
 * ``graph.copy`` around each input copy that ``engine.graphs.GraphProgram``
@@ -27,7 +31,8 @@ its layer boundaries:
 
 Spans carry no request identifier: they nest by time on the calling
 thread, so a caller that makes one call at a time (a closed loop, a GUI)
-finds a request's spans inside its ``click`` or ``batch`` span.
+finds a request's spans inside its ``click``, ``suggest`` or ``batch``
+span.
 """
 
 from __future__ import annotations

@@ -303,8 +303,9 @@ def test_gamut_mask_with_device_lightness_equals_number(l_in):
 def test_suggest_program_with_tensor_pixel_equals_int_form(map_div):
     """suggest_at with one-element index tensors (a TableStage's h, w)
     gives what the int form gives from the same seed; the suggest program
-    packs its centers and confidences into one (K, 3) buffer and takes the
-    pixel in net coordinates."""
+    packs its centers and confidences into one (K, 3) buffer, hands back
+    the uniform numbers it drew beside it and takes the pixel in net
+    coordinates."""
     rng = np.random.default_rng(3)
     dist = torch.from_numpy(rng.dirichlet(np.ones(529) * 0.05, (16, 16))
                             .astype(np.float32))
@@ -322,9 +323,10 @@ def test_suggest_program_with_tensor_pixel_equals_int_form(map_div):
                                 pts, gen, K=7, N=5000)
     assert torch.equal(c_int, c_t) and torch.equal(conf_int, conf_t)
     gen.manual_seed(5)
-    out = tP.make_suggest_program()(dist, as_t(h), as_t(w), pts, gen, K=7,
-                                    N=5000, map_div=map_div)
+    out, u_bins, u_seeds = tP.make_suggest_program()(
+        dist, as_t(h), as_t(w), pts, gen, K=7, N=5000, map_div=map_div)
     assert out.shape == (7, 3)
+    assert u_bins.shape == (5000,) and u_seeds.shape == (4, 7)
     assert torch.equal(out[:, :2], c_int) and torch.equal(out[:, 2],
                                                           conf_int)
 
