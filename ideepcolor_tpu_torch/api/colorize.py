@@ -848,17 +848,22 @@ class ColorizeImageTorchDist(ColorizeImageTorch):
         travels through the model's ``graphs.TableStage``, so one graph per
         (K, N) serves every pixel; centers and confidences come back in one
         readback, and the chain's uniform numbers stay on the device
-        (``_dev_draws``)."""
+        (``_dev_draws``). K outside [1, ``MAX_SUGGEST_K``] raises
+        ValueError, as in :meth:`ensure_suggest_program`."""
         if not self.dist_ab_set:
             print('Need to set prediction first')
             return 0
+        K = int(K)
+        if not 1 <= K <= self.MAX_SUGGEST_K:
+            raise ValueError(
+                f"k must be in [1, {self.MAX_SUGGEST_K}], got {K}")
         *_, h_dev, w_dev = self._dev_table(
             np.zeros((0, 4), np.int32), np.zeros((0, 2), np.float32), 0,
             h, w)
         with self._generator_lock:
             out, *draws = self._suggest_prog(
                 self._dev_dist, h_dev, w_dev, self._dev_pts(),
-                self._generator, K=int(K), N=int(N),
+                self._generator, K=K, N=int(N),
                 map_div=self.dist_map_div)
             out = out.cpu().numpy()
         self._dev_draws = tuple(draws)

@@ -190,7 +190,9 @@ def pixel_at(t: torch.Tensor, h, w) -> torch.Tensor:
     anything back."""
     if not isinstance(h, torch.Tensor):
         return t[h, w]
-    flat = (h.to(torch.int64) * t.shape[1] + w.to(torch.int64)).reshape(1)
+    # w + W * h in one launch, in the index tensors' own integer type
+    # (index_select takes int32 as well as int64)
+    flat = torch.add(w, h, alpha=t.shape[1]).reshape(1)
     return t.reshape(t.shape[0] * t.shape[1],
                      *t.shape[2:]).index_select(0, flat)[0]
 

@@ -14,11 +14,13 @@ deterministic core takes the uniform numbers (:func:`bins_from_uniform`,
 (:func:`_lloyd`) as input, and :func:`ab_recommendations` can hand back the
 numbers it drew, so a caller can work its answer out again.
 
-Run eagerly (``get_ab_reccs``) the chain's cost is its launches; inside a
-click it is part of the click's captured CUDA graph (``engine.graphs``). The
-restarts are a leading tensor dimension, the Lloyd iterations and the K-1
-seeding picks are the only Python loops, and nothing in them reads a value
-back to the host, which capture forbids: the degenerate-mass and
+On the card :func:`ab_recommendations` runs everything after its draws as
+one launch of kernel K5 (``ops.cuda.kmeans_kernel``), whose plain version
+is the chain here. Run eagerly the chain's cost is its launches; inside a
+click it is part of the click's captured CUDA graph (``engine.graphs``).
+The restarts are a leading tensor dimension, the Lloyd iterations and the
+K-1 seeding picks are the only Python loops, and nothing in them reads a
+value back to the host, which capture forbids: the degenerate-mass and
 empty-cluster branches are ``torch.where``, the winning restart is gathered
 by a device index.
 """
@@ -26,6 +28,8 @@ by a device index.
 from __future__ import annotations
 
 import torch
+
+from .cuda import kmeans_kernel as k5
 
 RESTARTS = 4      # k-means restarts of a suggestion, the best one kept
 
@@ -145,10 +149,22 @@ def ab_recommendations(dist: torch.Tensor, centers_tbl: torch.Tensor,
     ``return_draws`` also the uniform numbers the chain drew, (N,) for the
     sampler and (RESTARTS, K) for the seeding, from which
     :func:`bins_from_uniform` and :func:`kmeans_from_uniform` give the same
-    answer again."""
+    answer again.
+
+    Where ``k5.engages`` (a pdf and table of one length on a CUDA device,
+    a palette of at most 32), everything after the two draws is one launch
+    of kernel K5 on their float32 values, as the chain takes them; elsewhere
+    the chain runs."""
     u_bins = torch.rand(N, generator=generator, device=dist.device)
     u_seeds = torch.rand((RESTARTS, K), generator=generator,
                          device=centers_tbl.device)
-    out = kmeans_from_uniform(centers_tbl, bins_from_uniform(dist, u_bins),
-                              u_seeds, iters)
+    if k5.engages(dist, centers_tbl, K):
+        packed = k5.suggest(dist.to(torch.float32),
+                            centers_tbl.to(torch.float32), u_bins, u_seeds,
+                            iters)
+        out = packed[:, :2], packed[:, 2]
+    else:
+        out = kmeans_from_uniform(centers_tbl,
+                                  bins_from_uniform(dist, u_bins), u_seeds,
+                                  iters)
     return (*out, u_bins, u_seeds) if return_draws else out

@@ -194,6 +194,19 @@ def test_fixed_seed_gives_the_parent_entry_palette(dist, entry):
             lab[None, :, 0], lab[None, :, 1], lab[None, :, 2])[0].numpy())
 
 
+@pytest.mark.parametrize("bad_k", [0, 26])
+def test_get_ab_reccs_bounds_its_palette_as_suggest_table_does(dist, bad_k):
+    """A K outside [1, MAX_SUGGEST_K] is refused before anything is drawn:
+    the generator and the kept draws stay as they were."""
+    dist.get_ab_reccs(21, 44, K=K, N=N)
+    state, draws = dist._generator.get_state(), dist._dev_draws
+    with pytest.raises(ValueError, match="k must be in"):
+        dist.get_ab_reccs(21, 44, K=bad_k, N=N)
+    assert torch.equal(dist._generator.get_state(), state)
+    assert dist._dev_draws is draws
+    assert dist.MAX_SUGGEST_K == ColorizeImageTorchCaffeDist.MAX_SUGGEST_K
+
+
 def _spans(tmp_path, fn):
     with tprof.device_trace(str(tmp_path)):
         fn()
